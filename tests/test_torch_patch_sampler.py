@@ -1,0 +1,150 @@
+"""Port parity: the patch sampler (kernel K1) and its wrapper.
+
+On the CPU the port's ``sample_field_patches`` takes its plain version;
+it is held to the JAX package's Pallas kernel run in interpret mode (as
+``tests/test_patch_sampler.py`` runs it) at 1e-5 absolute, on the same
+cases. The CUDA kernel itself is held to the plain version on the card by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from sara_tpu.ops.patch_sampler import \
+    sample_field_patches as jax_sample_field_patches
+from sara_tpu_torch.ops import _build
+from sara_tpu_torch.ops import patch_sampler as ps
+
+
+def _random_problem(rs, S=3, H=64, W=80, C=36, K=24, N=16, rad=5.0,
+                    edge=False):
+    maps = rs.rand(S, H, W, C).astype(np.float32)
+    if edge:
+        cy = rs.choice([0.0, 1.0, H - 2.0, H - 1.0], K)
+        cx = rs.choice([0.0, 1.0, W - 2.0, W - 1.0], K)
+    else:
+        cy = rs.uniform(0, H - 1, K)
+        cx = rs.uniform(0, W - 1, K)
+    ys = (cy[:, None] + rs.uniform(-rad, rad, (K, N))).astype(np.float32)
+    xs = (cx[:, None] + rs.uniform(-rad, rad, (K, N))).astype(np.float32)
+    si = rs.randint(0, S, K).astype(np.int32)
+    return maps, si, ys, xs
+
+
+def _numpy_bilinear(maps, si, ys, xs):
+    """Loop reference: clamp, then the four taps of each sample."""
+    S, H, W, C = maps.shape
+    out = np.zeros(ys.shape + (C,), np.float64)
+    for k in range(ys.shape[0]):
+        for n in range(ys.shape[1]):
+            y = min(max(float(ys[k, n]), 0.0), H - 1.0)
+            x = min(max(float(xs[k, n]), 0.0), W - 1.0)
+            y0, x0 = int(np.floor(y)), int(np.floor(x))
+            y1, x1 = min(y0 + 1, H - 1), min(x0 + 1, W - 1)
+            fy, fx = y - y0, x - x0
+            m = maps[si[k]].astype(np.float64)
+            out[k, n] = (m[y0, x0] * (1 - fx) * (1 - fy)
+                         + m[y0, x1] * fx * (1 - fy)
+                         + m[y1, x0] * (1 - fx) * fy + m[y1, x1] * fx * fy)
+    return out
+
+
+def _port(maps, si, ys, xs, device="cpu", **kw):
+    t = [torch.from_numpy(a).to(device) for a in (maps, si, ys, xs)]
+    return ps.sample_field_patches(*t, max_sample_radius=11.0, **kw)
+
+
+@pytest.mark.parametrize("case", ["random", "edge", "k13"])
+def test_matches_pallas_interpret(case):
+    rs = np.random.RandomState({"random": 3, "edge": 4, "k13": 7}[case])
+    kw = {"edge": case == "edge"}
+    if case == "k13":
+        kw["K"] = 13
+    maps, si, ys, xs = _random_problem(rs, **kw)
+    ref = jax_sample_field_patches(jnp.asarray(maps), jnp.asarray(si),
+                                   jnp.asarray(ys), jnp.asarray(xs),
+                                   max_sample_radius=11.0, block=8,
+                                   interpret=True)
+    assert ref is not None
+    out = _port(maps, si, ys, xs)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+def test_geometry_the_jax_dispatcher_declines():
+    """The port samples every geometry; JAX returns None here."""
+    rs = np.random.RandomState(1)
+    maps, si, ys, xs = _random_problem(rs, H=16, W=16, K=9, rad=30.0)
+    assert jax_sample_field_patches(jnp.asarray(maps), jnp.asarray(si),
+                                    jnp.asarray(ys), jnp.asarray(xs),
+                                    max_sample_radius=40.0,
+                                    interpret=True) is None
+    np.testing.assert_allclose(_port(maps, si, ys, xs).numpy(),
+                               _numpy_bilinear(maps, si, ys, xs),
+                               atol=1e-5, rtol=0)
+
+
+def test_bf16_maps_accumulate_in_f32():
+    rs = np.random.RandomState(2)
+    maps, si, ys, xs = _random_problem(rs, K=5)
+    t = [torch.from_numpy(a) for a in (maps, si, ys, xs)]
+    out = ps.sample_field_patches(t[0].bfloat16(), *t[1:],
+                                  max_sample_radius=11.0)
+    assert out.dtype == torch.float32
+    ref = _numpy_bilinear(t[0].bfloat16().float().numpy(), si, ys, xs)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("bad", ["pack_x", "float_idx", "f64_coords",
+                                 "shape", "f16_maps", "meta"])
+def test_wrapper_rejects(bad):
+    rs = np.random.RandomState(0)
+    maps, si, ys, xs = (torch.from_numpy(a) for a in
+                        _random_problem(rs, K=4))
+    kw = {}
+    if bad == "pack_x":
+        kw["pack_x"] = True
+    elif bad == "float_idx":
+        si = si.float()
+    elif bad == "f64_coords":
+        ys = ys.double()
+    elif bad == "shape":
+        xs = xs[:, :8]
+    elif bad == "f16_maps":
+        maps = maps.half()
+    else:
+        maps, si, ys, xs = (t.to("meta") for t in (maps, si, ys, xs))
+    err = NotImplementedError if bad == "pack_x" else ValueError
+    before = ps.LAUNCHES
+    with pytest.raises(err):
+        ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=11.0,
+                                **kw)
+    assert ps.LAUNCHES == before
+
+
+def test_cpu_path_counts_no_launch():
+    rs = np.random.RandomState(0)
+    before = ps.LAUNCHES
+    _port(*_random_problem(rs, K=3))
+    assert ps.LAUNCHES == before
+
+
+def test_failed_build_raises(tmp_path, monkeypatch):
+    """A compiler that fails makes the build raise and leaves no library."""
+    import sys
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", lambda: sys.executable)
+    with pytest.raises(RuntimeError, match="patch_sampler.cu"):
+        _build.build("patch_sampler")
+    assert not list(tmp_path.glob("*.so"))
+
+
+def test_library_name_tracks_source_and_flags():
+    assert _build.kernel_names() == ["patch_sampler"]
+    assert _build.library_path("patch_sampler").suffix == ".so"
+    assert _build.library_path("patch_sampler").parent == _build.BUILD_DIR
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
