@@ -11,17 +11,28 @@ raises, so the script exits nonzero and prints no result line):
 1. require a CUDA device; print the card's name and power limit;
 2. build every CUDA kernel of the main path from the sources in
    ``sara_tpu_torch/ops/csrc`` (one nvcc process each, all at once);
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's shapes (max abs error <= 1e-5);
-4. drive the main path through the entry points a user calls: two 480x640
+3. hold each kernel (K1, and K2 = the x-packed mode) against its plain
+   PyTorch version on the card, at the main path's shapes (max abs error
+   <= 1e-5);
+4. drive the frame path through the entry points a user calls: two 480x640
    frames (B is A shifted 16 px) through ``compute_sift_keypoints`` with the
    bilinear kernel-sampler configuration, then ``match_descriptors``. The
    launch counts are set to 0 just before and read just after; then check
    the keypoints, the 16-px shift of the matches, and that the gather
    sampler gives the same keypoints and descriptors;
-5. time each kernel, its plain version and a PyTorch library call on the
+5. drive K2's path: frame A's six sampler launches again through
+   ``sample_field_patches(..., pack_x=True)`` (counts set to 0 just before,
+   read just after: octaves 0-4 take K2, octave 5 takes K1), each output
+   held to K2's plain version and to K1's output;
+6. time each kernel, its plain version and a PyTorch library call on the
    inputs the main path gave it, beside the card's bound for that work;
-6. print the kernels line, then the result line.
+7. drive the two-view path (Slice B) at full size: ``estimate_homography``
+   on the frame pair's matches, and ``estimate_relative_pose``,
+   ``estimate_fundamental`` and ``estimate_absolute_pose`` on a synthetic
+   scene of 8192 slots (4096 valid correspondences, 30% outliers); check
+   the recovered geometry, time each estimator and profile one relative
+   pose;
+8. print the kernels line, the card line, then the result line.
 """
 
 from __future__ import annotations
@@ -158,30 +169,43 @@ def sampler_bound_ms(maps, s_idx, ys, xs) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels_vs_plain(ps) -> float:
-    """K1 against its plain version on synthetic cases at the main path's
-    shapes: octave 0 (random and edge-pinned centres, f32 and bf16), a
-    ragged K = 13, and the octave-5 shape."""
+def phase_kernels_vs_plain(ps) -> tuple[float, float]:
+    """K1 and K2 against their plain versions on synthetic cases at the main
+    path's shapes: octave 0 (random and edge-pinned centres, f32 and bf16),
+    a ragged K = 13, and (K1) the octave-5 shape. Returns the worst error
+    of each kernel."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    cases = [("octave0", dict(S=5, H=960, W=1280, K=5120)),
-             ("octave0 edge", dict(S=5, H=960, W=1280, K=5120, edge=True)),
-             ("octave0 bf16", dict(S=5, H=960, W=1280, K=5120,
-                                   dtype=torch.bfloat16)),
+    octave0 = dict(S=5, H=960, W=1280, K=5120)
+    cases = [("octave0", octave0),
+             ("octave0 edge", dict(octave0, edge=True)),
+             ("octave0 bf16", dict(octave0, dtype=torch.bfloat16)),
              ("K=13", dict(S=5, H=120, W=160, K=13)),
              ("octave5", dict(S=5, H=30, W=40, K=80))]
-    worst = 0.0
-    for name, kw in cases:
-        maps, si, ys, xs = sampler_problem(g, **kw)
-        out = ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=25.7)
-        ref = ps._sample_patches_reference(maps, si, ys, xs)
-        torch.cuda.synchronize()
-        check(out.shape == ref.shape, f"{name}: shape {tuple(out.shape)}")
-        err = (out - ref).abs().max().item()
-        log(f"patch_sampler vs plain [{name}] {tuple(maps.shape)} "
-            f"K={ys.shape[0]}: max_abs_err={err:.3e}")
-        check(err <= TOLERANCE, f"patch_sampler {name}: error {err}")
-        worst = max(worst, err)
-    return worst
+    worst = {False: 0.0, True: 0.0}
+    for packed in (False, True):
+        name_k = "patch_sampler_packed" if packed else "patch_sampler"
+        plain = (ps._sample_patches_packed_reference if packed
+                 else ps._sample_patches_reference)
+        for name, kw in cases:
+            if packed and not ps.packed_layout_ok((1, 1, kw["W"], 36)):
+                continue
+            maps, si, ys, xs = sampler_problem(g, **kw)
+            before = ps.PACKED_LAUNCHES
+            out = ps.sample_field_patches(maps, si, ys, xs,
+                                          max_sample_radius=25.7,
+                                          pack_x=packed)
+            ref = plain(maps, si, ys, xs)
+            torch.cuda.synchronize()
+            check(ps.PACKED_LAUNCHES == before + packed,
+                  f"{name_k} {name}: wrong kernel launched")
+            check(out.shape == ref.shape, f"{name}: shape {tuple(out.shape)}")
+            err = (out - ref).abs().max().item()
+            log(f"{name_k} vs plain [{name}] {tuple(maps.shape)} "
+                f"{str(maps.dtype)[6:]} K={ys.shape[0]}: "
+                f"max_abs_err={err:.3e}")
+            check(err <= TOLERANCE, f"{name_k} {name}: error {err}")
+            worst[packed] = max(worst[packed], err)
+    return worst[False], worst[True]
 
 
 def phase_main_path(ps, card: str):
@@ -210,7 +234,7 @@ def phase_main_path(ps, card: str):
 
     ps.sample_field_patches = recording
     try:
-        ps.LAUNCHES = 0
+        ps.LAUNCHES = ps.PACKED_LAUNCHES = 0
         t0 = time.perf_counter()
         ka = compute_sift_keypoints(frame_a, params)
         torch.cuda.synchronize()
@@ -221,15 +245,15 @@ def phase_main_path(ps, card: str):
         m = match_descriptors(ka, kb, MatchParams(ratio=0.8))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        launches = ps.LAUNCHES
+        launches, packed = ps.LAUNCHES, ps.PACKED_LAUNCHES
     finally:
         ps.sample_field_patches = wrapper
     times = [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3]
     log(f"main path: frame A {times[0]:.2f} ms, frame B {times[1]:.2f} ms, "
         f"match {times[2]:.2f} ms ({card})")
     log(f"patch_sampler launches on the main path: {launches}")
-    check(launches == 12, f"expected 12 launches (6 octaves x 2 frames), "
-          f"got {launches}")
+    check(launches == 12 and packed == 0, f"expected 12 K1 launches "
+          f"(6 octaves x 2 frames) and no K2, got {launches} and {packed}")
 
     for name, k in (("A", ka), ("B", kb)):
         check(k.descriptors.shape == (params.total_capacity, 128),
@@ -270,11 +294,45 @@ def phase_main_path(ps, card: str):
     log(f"frontend steady state: {med:.2f} ms/frame median of 5, "
         f"{1e3 / med:.2f} frames/s ({card})")
     profile_frame(lambda: compute_sift_keypoints(frame_a, params), med)
-    return recorded[:6], launches
+    return recorded[:6], launches, (ka, kb, m)
 
 
-def profile_frame(fn, wall_ms: float, top: int = 12) -> None:
-    """Where one frame's device time goes (torch.profiler): the device's
+def phase_packed_path(ps, recorded):
+    """K2's path: frame A's six sampler launches through
+    ``sample_field_patches(..., pack_x=True)``. Octaves 0-4 (W = 1280 .. 80,
+    multiples of 16) take K2, octave 5 (W = 40) takes K1, as the
+    reference's dispatcher rule says. Returns (K2 launches, K1 launches,
+    worst error against K2's plain version and against K1)."""
+    ps.LAUNCHES = ps.PACKED_LAUNCHES = 0
+    outs = [ps.sample_field_patches(*args, max_sample_radius=0, pack_x=True)
+            for args in recorded]
+    torch.cuda.synchronize()
+    k2, k1 = ps.PACKED_LAUNCHES, ps.LAUNCHES
+    log(f"pack_x path: K2 launches {k2}, K1 launches {k1}")
+    check(k2 == 5 and k1 == 1, f"pack_x path: expected 5 K2 launches and "
+          f"1 K1 launch, got {k2} and {k1}")
+    worst = 0.0
+    for octave, ((maps, s_idx, ys, xs), out) in enumerate(zip(recorded,
+                                                              outs)):
+        plain = (ps._sample_patches_packed_reference
+                 if ps.packed_layout_ok(maps.shape)
+                 else ps._sample_patches_reference)
+        ref = plain(maps, s_idx, ys, xs)
+        via_k1 = ps.sample_field_patches(maps, s_idx, ys, xs,
+                                         max_sample_radius=0)
+        torch.cuda.synchronize()
+        err = max((out - ref).abs().max().item(),
+                  (out - via_k1).abs().max().item())
+        log(f"pack_x octave {octave} {tuple(maps.shape)}: max_abs_err vs "
+            f"plain and K1 {err:.3e}")
+        check(err <= TOLERANCE, f"pack_x octave {octave}: error {err}")
+        worst = max(worst, err)
+    return k2, k1, worst
+
+
+def profile_frame(fn, wall_ms: float, top: int = 12,
+                  what: str = "frame") -> None:
+    """Where one call's device time goes (torch.profiler): the device's
     busy time beside the unprofiled wall time, and the kernels that take
     the most of it. Prints "not measured" if the profiler sees no device
     events."""
@@ -298,25 +356,32 @@ def profile_frame(fn, wall_ms: float, top: int = 12) -> None:
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms == 0:
-        log("frame profile: device time not measured (no device events)")
+        log(f"{what} profile: device time not measured (no device events)")
         return
     events.sort(key=dev_us, reverse=True)
-    log("frame profile", json.dumps({
+    log(f"{what} profile", json.dumps({
         "wall_ms_unprofiled": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top": [{"name": e.key[:80], "calls": e.count,
                  "device_ms": dev_us(e) / 1e3} for e in events[:top]]}))
 
 
-def phase_timing(ps, recorded):
+def phase_timing(ps, recorded, packed: bool = False):
     """Kernel, plain version and library call on each frame-A launch's own
-    inputs, beside the bound; returns per-launch rows."""
+    inputs, beside the bound; returns per-launch rows. ``packed``: K2 and
+    its plain version, on the launches K2 takes (octaves 0-4)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    plain = (ps._sample_patches_packed_reference if packed
+             else ps._sample_patches_reference)
+    name = "patch_sampler_packed" if packed else "patch_sampler"
     rows = []
     for octave, (maps, s_idx, ys, xs) in enumerate(recorded):
+        if packed and not ps.packed_layout_ok(maps.shape):
+            continue
         s32 = s_idx.to(torch.int32)
-        out = ps.sample_field_patches(maps, s32, ys, xs, max_sample_radius=0)
-        ref = ps._sample_patches_reference(maps, s32, ys, xs)
+        out = ps.sample_field_patches(maps, s32, ys, xs, max_sample_radius=0,
+                                      pack_x=packed)
+        ref = plain(maps, s32, ys, xs)
         lib_call, lib_view = sampler_library_call(maps, s32, ys, xs)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
@@ -327,16 +392,223 @@ def phase_timing(ps, recorded):
             "octave": octave, "maps": list(maps.shape), "K": ys.shape[0],
             "N": ys.shape[1], "max_abs_err": err,
             "ms": timed_ms(lambda: ps.sample_field_patches(
-                maps, s32, ys, xs, max_sample_radius=0), flush=flush),
-            "plain_ms": timed_ms(lambda: ps._sample_patches_reference(
-                maps, s32, ys, xs), flush=flush),
+                maps, s32, ys, xs, max_sample_radius=0, pack_x=packed),
+                flush=flush),
+            "plain_ms": timed_ms(lambda: plain(maps, s32, ys, xs),
+                                 flush=flush),
             "library_ms": timed_ms(lib_call, flush=flush),
             "library_max_abs_err": lib_err,
             "bound_ms": bound, "bound_by": bound_by,
         }
-        log("patch_sampler at main-path shape", json.dumps(row))
+        log(f"{name} at main-path shape", json.dumps(row))
         rows.append(row)
     return rows
+
+
+def compare_k1_k2(ps, recorded) -> None:
+    """K1 and K2 on the same pack_x launches, timed in turns (K1, K2, K2,
+    K1) so that clocks and neighbours weigh on both alike."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
+    rows = []
+    for octave, (maps, s_idx, ys, xs) in enumerate(recorded):
+        if not ps.packed_layout_ok(maps.shape):
+            continue
+        s32 = s_idx.to(torch.int32)
+        run = {packed: (lambda p=packed: ps.sample_field_patches(
+            maps, s32, ys, xs, max_sample_radius=0, pack_x=p))
+            for packed in (False, True)}
+        t = [timed_ms(run[p], flush=flush) for p in (False, True, True,
+                                                      False)]
+        rows.append({"octave": octave, "k1_ms": (t[0] + t[3]) / 2,
+                     "k2_ms": (t[1] + t[2]) / 2})
+    log("K1 vs K2 in turns", json.dumps(rows))
+
+
+def count_syncs(fn) -> dict:
+    """The host syncs PyTorch reports in one call of ``fn``
+    (``torch.cuda.set_sync_debug_mode("warn")``): their count and the
+    source lines (file:line) that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = [f"{w.filename.split('/')[-1]}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    return {"syncs": len(where),
+            "at": {k: where.count(k) for k in sorted(set(where))}}
+
+
+def make_two_view_scene(seed: int = 0, slots: int = 8192, n_valid: int = 4096,
+                        outlier_frac: float = 0.3, noise_px: float = 0.5):
+    """A synthetic two-view scene in numpy (the geometry of
+    tests/geometry_fixtures.py at the size of a real frame pair): K with
+    f = 800 at 640x480, camera 2 at x2 = R x1 + t. ``n_valid`` of ``slots``
+    rows are correspondences, scattered among invalid rows of noise; a
+    fraction ``outlier_frac`` of them get a random pixel in view 2. Pixels
+    carry Gaussian noise of ``noise_px``."""
+    rs = np.random.RandomState(seed)
+    K = np.array([[800.0, 0.0, 320.0], [0.0, 800.0, 240.0], [0.0, 0.0, 1.0]])
+    yaw, pitch, roll = 0.1, -0.05, 0.03
+    cz, sz, cy, sy, cx, sx = (np.cos(yaw), np.sin(yaw), np.cos(pitch),
+                              np.sin(pitch), np.cos(roll), np.sin(roll))
+    R = (np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+         @ np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+         @ np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]]))
+    t = np.array([1.0, 0.1, 0.05])
+    pix = rs.uniform([0, 0], [640, 480], (slots, 2))
+    depth = rs.uniform(4.0, 12.0, slots)
+    X = depth[:, None] * (np.c_[pix, np.ones(slots)] @ np.linalg.inv(K).T)
+    Xc2 = X @ R.T + t
+    p2 = Xc2 @ K.T
+    u = pix + rs.normal(scale=noise_px, size=(slots, 2))
+    v = p2[:, :2] / p2[:, 2:] + rs.normal(scale=noise_px, size=(slots, 2))
+    mask = np.zeros(slots, bool)
+    mask[rs.choice(slots, n_valid, replace=False)] = True
+    valid = np.flatnonzero(mask)
+    out = rs.choice(valid, int(round(outlier_frac * n_valid)), replace=False)
+    v[out] = rs.uniform([0, 0], [640, 480], (len(out), 2))
+    inlier = mask.copy()
+    inlier[out] = False
+    invalid = ~mask
+    u[invalid] = rs.uniform(-1e3, 1e3, (invalid.sum(), 2))   # garbage rows
+    v[invalid] = rs.uniform(-1e3, 1e3, (invalid.sum(), 2))
+    ray2 = np.c_[v, np.ones(slots)] @ np.linalg.inv(K).T
+    ray2 /= np.linalg.norm(ray2, axis=1, keepdims=True)
+    return dict(K=K, R=R, t=t, u=u, v=v, X=X, rays=ray2, mask=mask,
+                inlier=inlier)
+
+
+def rotation_deg(A, B) -> float:
+    c = (np.trace(A.T @ B) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def direction_deg(a, b) -> float:
+    c = abs(a @ b) / (np.linalg.norm(a) * np.linalg.norm(b))
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def timed_call_ms(fn, device: torch.device, reps: int = 5) -> float:
+    """Median wall time of ``fn`` over ``reps`` calls after one warm-up,
+    each ending in a device synchronize."""
+    fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_two_view(frames, card: str, device="cuda", num_samples: int = 1000,
+                   scene_kw=None) -> dict:
+    """Slice B through its entry points: the homography of the frame pair's
+    matches, then the relative pose, fundamental matrix and absolute pose
+    of the synthetic scene. Checks the geometry, times each estimator
+    (median of 5 after a warm-up) and, on the card, profiles one relative
+    pose. ``frames`` = (ka, kb, m) of the frame path, or None to skip the
+    homography. Returns the measurements."""
+    from sara_tpu_torch.mvg.two_view import (sampson_epipolar_distance,
+                                             two_view_geometry)
+    from sara_tpu_torch.ransac import (estimate_absolute_pose,
+                                       estimate_fundamental,
+                                       estimate_homography,
+                                       estimate_relative_pose)
+
+    dev = torch.device(device)
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)   # noqa: E731
+    out = {}
+    if frames is not None:
+        ka, kb, m = frames
+        u, v = ka.xy, kb.xy[m.j.long()]
+        run = lambda: estimate_homography(gen(), u, v, m.mask,   # noqa: E731
+                                          threshold=4.0,
+                                          num_samples=num_samples)
+        res = run()
+        H = res.model.double().cpu().numpy()
+        h, w = FRAME_HW
+        c = np.array([[0, 0, 1], [w, 0, 1], [0, h, 1], [w, h, 1]], float)
+        moved = c @ H.T
+        err = np.abs(moved[:, :2] / moved[:, 2:] - c[:, :2]
+                     - [SHIFT_PX, 0]).max()
+        n_match, n_inl = int(m.count()), int(res.num_inliers)
+        out["homography"] = {"matches": n_match, "inliers": n_inl,
+                             "corner_err_px": float(err),
+                             "ms": timed_call_ms(run, dev)}
+        log("estimate_homography", json.dumps(out["homography"]), f"({card})")
+        check(bool(res.success) and err <= 0.5 and n_inl >= 0.9 * n_match,
+              f"homography: corner error {err} px, {n_inl}/{n_match} inliers")
+
+    sc = make_two_view_scene(**(scene_kw or {}))
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    u, v, K, X, rays = (f(sc[k]) for k in ("u", "v", "K", "X", "rays"))
+    mask = torch.as_tensor(sc["mask"], device=dev)
+    truth = sc["inlier"]
+
+    def report(name, res, R, t, run, dir_gate=True, **extra):
+        """Log and check one estimator: success, recall >= 90% of the true
+        inliers, rotation error <= 0.5 deg and (``dir_gate``) translation
+        direction <= 2 deg."""
+        R = R.double().cpu().numpy()
+        t = t.double().cpu().numpy()
+        inl = res.inliers.cpu().numpy()
+        row = {"rot_err_deg": rotation_deg(R, sc["R"]),
+               "dir_err_deg": direction_deg(t, sc["t"]),
+               "recall": float((inl & truth).sum() / truth.sum()),
+               "false_inliers": int((inl & ~truth).sum()),
+               "inliers": int(res.num_inliers), **extra,
+               "ms": timed_call_ms(run, dev)}
+        out[name] = row
+        log(name, json.dumps(row), f"({card})")
+        ok = (bool(res.success) and row["recall"] >= 0.9
+              and row["rot_err_deg"] <= 0.5)
+        if dir_gate:
+            ok = ok and row["dir_err_deg"] <= 2.0
+        check(ok, f"{name}: {row}")
+
+    run = lambda: estimate_relative_pose(gen(), u, v, mask, K, K,  # noqa: E731
+                                         num_samples=num_samples,
+                                         min_inliers=100)
+    res, R, t = run()
+    report("estimate_relative_pose", res, R, t, run)
+    if dev.type == "cuda":
+        profile_frame(run, out["estimate_relative_pose"]["ms"],
+                      what="relative pose")
+        log("relative pose: host syncs", json.dumps(count_syncs(run)))
+
+    run = lambda: estimate_fundamental(gen(), u, v, mask,  # noqa: E731
+                                       num_samples=num_samples)
+    res = run()
+    # F is the best minimal 7-point model (the estimator refits nothing), so
+    # besides its inliers it is held to its epipolar error on the true
+    # inliers (median Sampson distance <= 1 px at 0.5 px noise) and to the
+    # rotation in it (E = K^T F K, resolved by cheirality); the translation
+    # direction of an unrefined 7-point F is logged, not gated.
+    Kinv = torch.linalg.inv(K)
+    ray = lambda p: torch.cat([p, torch.ones_like(p[:, :1])], 1) @ Kinv.T  # noqa: E731
+    R, t, _, _, _ = two_view_geometry(K.T @ res.model @ K, ray(u), ray(v),
+                                      res.inliers)
+    sampson = sampson_epipolar_distance(res.model, u, v).cpu().numpy()
+    med = float(np.median(sampson[truth]))
+    report("estimate_fundamental", res, R, t, run, dir_gate=False,
+           sampson_median_px=med)
+    check(med <= 1.0, f"estimate_fundamental: median Sampson {med} px")
+
+    run = lambda: estimate_absolute_pose(gen(), X, rays, v, K,  # noqa: E731
+                                         mask, num_samples=num_samples)
+    res, R, t = run()
+    report("estimate_absolute_pose", res, R, t, run)
+    return out
 
 
 def main() -> int:
@@ -356,32 +628,44 @@ def main() -> int:
     for name, text in _build.BUILD_LOGS.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
 
-    worst = phase_kernels_vs_plain(ps)
-    recorded, launches = phase_main_path(ps, card)
+    worst_k1, worst_k2 = phase_kernels_vs_plain(ps)
+    recorded, launches, frames = phase_main_path(ps, card)
+    k2_launches, k1_on_k2_path, k2_path_err = phase_packed_path(ps, recorded)
     rows = phase_timing(ps, recorded)
-    worst = max([worst] + [r["max_abs_err"] for r in rows])
+    rows_k2 = phase_timing(ps, recorded, packed=True)
+    compare_k1_k2(ps, recorded)
+    t0 = time.perf_counter()
+    phase_two_view(frames, card)
+    log(f"two-view phase: {time.perf_counter() - t0:.2f} s")
     check(not any(m.split(".")[0] in ("jax", "sara_tpu")
                   for m in sys.modules), "JAX or sara_tpu was imported")
 
-    total = {k: sum(r[k] for r in rows)
-             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    kernel = {
-        "name": "patch_sampler",
-        "route": "cuda",
-        "source": "sara_tpu_torch/ops/csrc/patch_sampler.cu",
-        "replaces": "sara_tpu/ops/patch_sampler.py:43",
-        "launches": launches,
-        "max_abs_err": worst,
-        "ms": total["ms"],
-        "kernel_ms": total["ms"],
-        "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"],
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows)
-        else "operations",
-        "library_ms": total["library_ms"],
-        "per": "frame: the 6 launches of one 480x640 frame, summed",
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    def entry(name, replaces, rows, launches, worst, per, **extra):
+        total = {k: sum(r[k] for r in rows)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        return {
+            "name": name, "route": "cuda",
+            "source": "sara_tpu_torch/ops/csrc/patch_sampler.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]),
+            "ms": total["ms"], "kernel_ms": total["ms"],
+            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
+            "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations",
+            "library_ms": total["library_ms"], "per": per, **extra}
+
+    kernels = [
+        entry("patch_sampler", "sara_tpu/ops/patch_sampler.py:43", rows,
+              launches + k1_on_k2_path, worst_k1,
+              "frame: the 6 launches of one 480x640 frame, summed",
+              launches_by_path={"frames": launches,
+                                "pack_x": k1_on_k2_path}),
+        entry("patch_sampler_packed", "sara_tpu/ops/patch_sampler.py:94",
+              rows_k2, k2_launches, max(worst_k2, k2_path_err),
+              "frame: the 5 pack_x launches (octaves 0-4) of one 480x640 "
+              "frame, summed"),
+    ]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,16 @@ twin; it imports ``torch`` and numpy and nothing of JAX or ``sara_tpu``.
 Every Pallas kernel of the reference becomes a kernel written by hand for
 Hopper (``ops/csrc``), with a plain PyTorch version beside it.
 
-Ported so far: the SIFT frontend and the brute-force matcher.
+Ported so far: the SIFT frontend and the brute-force matcher (Slice A),
+and two-view geometry (Slice B).
 
-core      Keypoints / Matches containers
+core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3)
 image     separable filtering, transforms, gradients, Gaussian/DoG pyramids
 features  DoG detection, orientation, field SIFT descriptors, the pipeline
 matching  brute-force GEMM matcher (ratio test + mutual check)
-ops       top-k and the CUDA patch-sampler kernel
+mvg       minimal solvers (4/5/7/8-point, P3P), two-view geometry
+ransac    batched RANSAC, ORSA and the H / F / E + pose / PnP estimators
+ops       top-k, small-matrix algebra and the CUDA patch-sampler kernels
 convert   carries parameters and keypoints over from the JAX package
 
 Entry points run on the card: ``device=None`` means CUDA, and without a

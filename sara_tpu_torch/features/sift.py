@@ -147,10 +147,12 @@ def sift_descriptors_field(maps: torch.Tensor, x, y, s, theta, sigmas,
       bilinear: bilinear or nearest samples on the "gather" path.
       sampler: "gather" = row gathers in PyTorch; "kernel" = the patch
         sampler of ops/patch_sampler.py (the CUDA kernel on a CUDA tensor),
-        always bilinear, for every geometry; "auto" = "kernel" on a CUDA
-        tensor, "gather" otherwise. The JAX twin's "pallas" sampler falls
-        back to gathers where its window does not fit; with
-        ``bilinear=True`` that fallback computes the same function.
+        which samples bilinear; "auto" = "kernel" on a CUDA tensor,
+        "gather" otherwise. Like the JAX twin's "pallas" sampler, "kernel"
+        with ``bilinear=False`` takes nearest gathers where the twin's
+        window does not fit (``patch_sampler.tpu_window_fits``); with
+        ``bilinear=True`` both paths compute the same function, so every
+        geometry goes through the kernel.
 
     Returns (K, 128) float32, L2-normalized with 0.2 clamping.
     """
@@ -176,10 +178,13 @@ def sift_descriptors_field(maps: torch.Tensor, x, y, s, theta, sigmas,
 
     if sampler == "auto":
         sampler = "kernel" if maps.is_cuda else "gather"
+    # Spread bound of the 4x4 bin centres (radius 1.5 sqrt(2) l).
+    rad = 1.5 * math.sqrt(2.0) * BIN_SCALE_UNIT * max(sigmas) / downsample
+    if (sampler == "kernel" and not bilinear and not
+            patch_sampler.tpu_window_fits(maps.shape, maps.element_size(),
+                                          rad)):
+        sampler = "gather"
     if sampler == "kernel":
-        # Spread bound of the 4x4 bin centres (radius 1.5 sqrt(2) l), kept
-        # for the twin's signature; the kernel needs no fit rule.
-        rad = 1.5 * math.sqrt(2.0) * BIN_SCALE_UNIT * max(sigmas) / downsample
         Fs = patch_sampler.sample_field_patches(
             maps, s_idx, ys, xs, max_sample_radius=rad)[..., :NUM_BINS]
     elif sampler == "gather":

@@ -1,4 +1,5 @@
-"""Bilinear field-patch sampler: kernel K1 written by hand for Hopper.
+"""Bilinear field-patch sampler: kernels K1 and K2 written by hand for
+Hopper.
 
 Twin of ``sara_tpu/ops/patch_sampler.py``. The descriptor stage reads, for
 K keypoints, N bilinear samples of contiguous C-channel rows from one scale
@@ -8,15 +9,16 @@ slice of a dense (S, H, W, C) field:
 
 with the coordinates clamped to the map first (clamp-to-edge).
 
-On a CUDA tensor :func:`sample_field_patches` launches the kernel of
-``csrc/patch_sampler.cu`` (built by ``_build`` at first use), which replaces
-the TPU kernel ``_sampler_kernel`` in its plain mode. The TPU kernel staged
-one window per keypoint in VMEM and declined geometries whose window did not
-fit; the CUDA kernel reads its four taps per sample straight from device
-memory, so it samples every geometry and never returns ``None``. On a CPU
-tensor the wrapper takes the plain version :func:`_sample_patches_reference`,
-and only because the tensor lies on the CPU. The x-packed mode (kernel K2)
-is not ported yet.
+On a CUDA tensor :func:`sample_field_patches` launches a kernel of
+``csrc/patch_sampler.cu`` (built by ``_build`` at first use): K1, which
+replaces the TPU kernel ``_sampler_kernel`` in its plain mode, or, with
+``pack_x=True`` where the reference's layout rule allows it, K2, which
+replaces its x-packed mode (the field read as (S, H, W/2, 2C) cells of
+x-pairs). The TPU kernel staged one window per keypoint in VMEM and
+declined geometries whose window did not fit; the CUDA kernels read their
+taps straight from device memory, so they sample every geometry and never
+return ``None``. On a CPU tensor the wrapper takes the plain version of the
+kernel it would launch, and only because the tensor lies on the CPU.
 """
 
 from __future__ import annotations
@@ -27,12 +29,62 @@ import torch
 
 from sara_tpu_torch.ops import _build
 
-# Launches of the CUDA kernel in this process; a run reads it to show that
-# its path went through the kernel.
+# Launches of each CUDA kernel in this process (K1 and K2); a run reads
+# them to show that its path went through the kernels.
 LAUNCHES = 0
+PACKED_LAUNCHES = 0
 
 _ENTRY = {torch.float32: "sara_sample_patches_f32",
           torch.bfloat16: "sara_sample_patches_bf16"}
+_PACKED_ENTRY = {torch.float32: "sara_sample_patches_packed_f32",
+                 torch.bfloat16: "sara_sample_patches_packed_bf16"}
+
+# The reference's budget for its double-buffered VMEM window scratch; kept
+# only for :func:`tpu_window_fits`.
+_VMEM_SCRATCH_BUDGET = 8 * 1024 * 1024
+
+
+def patch_extent(max_sample_radius: float) -> int:
+    """Smallest square window side of the reference's TPU kernel covering
+    samples within ``max_sample_radius`` map pixels of the centre (+1 px
+    bilinear support, +1 px origin rounding); -1 if none does."""
+    need = 2 * (int(max_sample_radius + 2.0)) + 2
+    for side in (8, 16, 24, 32, 40, 48, 64):
+        if side >= need:
+            return side
+    return -1
+
+
+def _fit_block(block: int, per_patch_bytes: int) -> int:
+    """Largest BK <= block whose double-buffered scratch fits the budget
+    (0 if even BK=1 does not fit)."""
+    return int(min(block, max(0, _VMEM_SCRATCH_BUDGET
+                              // (2 * per_patch_bytes))))
+
+
+def tpu_window_fits(shape, itemsize: int, max_sample_radius: float,
+                    block: int = 8) -> bool:
+    """Whether the reference's plain-mode dispatcher samples (S, H, W, C)
+    maps of ``itemsize``-byte entries with its TPU kernel (True) or
+    declines the geometry and leaves its caller to row gathers (False).
+
+    The port's kernels sample every geometry; a caller uses this plain
+    shape test only where the reference's fallback computes a different
+    function (nearest-sampled descriptors).
+    """
+    _, H, W, C = shape
+    side = patch_extent(max_sample_radius)
+    if side < 0 or H < side or W < side + 8 or W % 8 != 0:
+        return False
+    Cp = -(-C // 128) * 128
+    return _fit_block(block, side * (side + 8) * Cp * itemsize) > 0
+
+
+def packed_layout_ok(shape) -> bool:
+    """The reference's rule for the x-packed mode: 2C <= 128 lanes and a
+    width that is a multiple of 16. Elsewhere ``pack_x`` takes K1."""
+    _, _, W, C = shape
+    return 2 * C <= 128 and W % 16 == 0
 
 
 def _sample_patches_reference(maps: torch.Tensor, s_idx: torch.Tensor,
@@ -61,12 +113,47 @@ def _sample_patches_reference(maps: torch.Tensor, s_idx: torch.Tensor,
             + take(y1, x0) * (1 - fx) * fy + take(y1, x1) * fx * fy)
 
 
-def _launch(maps: torch.Tensor, s_idx: torch.Tensor, ys: torch.Tensor,
-            xs: torch.Tensor) -> torch.Tensor:
-    global LAUNCHES
+def _sample_patches_packed_reference(maps: torch.Tensor,
+                                     s_idx: torch.Tensor, ys: torch.Tensor,
+                                     xs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2, independent of K1's: gathers from the
+    (S, H, W/2, 2C) cell view, weights each cell's even half by
+    tri(2a - x) and its odd half by tri(2a + 1 - x), and recombines the
+    halves, as the TPU formula does."""
     S, H, W, C = maps.shape
     K, N = ys.shape
-    fn = getattr(_build.load("patch_sampler"), _ENTRY[maps.dtype])
+    Wc = W // 2
+    cells = maps.reshape(S * H * Wc, 2 * C)
+    s = s_idx.long().clamp(0, S - 1)
+    yc = ys.clamp(0.0, H - 1.0)
+    xc = xs.clamp(0.0, W - 1.0)
+    y0 = torch.floor(yc).long()
+    a0 = torch.floor(xc).long() // 2
+    base = s[:, None] * (H * Wc)
+
+    def tri(d):
+        return torch.clamp(1.0 - d.abs(), min=0.0)[..., None]
+
+    out = 0.0
+    for dy in (0, 1):
+        row = torch.clamp(y0 + dy, max=H - 1)
+        wy = tri(yc - (y0 + dy))
+        for da in (0, 1):
+            a = a0 + da        # cell past the row: clamped, weight 0
+            take = cells.index_select(0, (base + row * Wc + torch.clamp(
+                a, max=Wc - 1)).reshape(-1)).reshape(K, N, 2 * C).float()
+            out = out + wy * (tri(2.0 * a - xc) * take[..., :C]
+                              + tri(2.0 * a + 1.0 - xc) * take[..., C:])
+    return out
+
+
+def _launch(maps: torch.Tensor, s_idx: torch.Tensor, ys: torch.Tensor,
+            xs: torch.Tensor, packed: bool = False) -> torch.Tensor:
+    global LAUNCHES, PACKED_LAUNCHES
+    S, H, W, C = maps.shape
+    K, N = ys.shape
+    entry = (_PACKED_ENTRY if packed else _ENTRY)[maps.dtype]
+    fn = getattr(_build.load("patch_sampler"), entry)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -76,9 +163,12 @@ def _launch(maps: torch.Tensor, s_idx: torch.Tensor, ys: torch.Tensor,
         err = fn(maps.data_ptr(), s_idx.data_ptr(), ys.data_ptr(),
                  xs.data_ptr(), out.data_ptr(), S, H, W, C, K, N, stream)
     if err != 0:
-        raise RuntimeError(f"patch_sampler kernel launch failed: "
+        raise RuntimeError(f"patch_sampler kernel {entry} launch failed: "
                            f"cudaError_t {err}")
-    LAUNCHES += 1
+    if packed:
+        PACKED_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -90,8 +180,8 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
     """Bilinear-sample (K, N) positions from (S, H, W, C) maps.
 
     Returns (K, N, C) float32 for every geometry: there is no fit rule and
-    no ``None``. A CUDA tensor goes through the kernel, or the call raises;
-    a CPU tensor goes through the plain version.
+    no ``None``. A CUDA tensor goes through a kernel, or the call raises;
+    a CPU tensor goes through that kernel's plain version.
 
     Args:
       maps: (S, H, W, C) float32 or bfloat16 field, contiguous.
@@ -99,10 +189,10 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
       ys, xs: (K, N) float32 sample positions in map pixels, contiguous.
       max_sample_radius, block: kept for the signature of the JAX twin,
         where they size the TPU window; they do not change the result.
-      pack_x: the x-packed mode (kernel K2); not ported yet.
+      pack_x: the x-packed mode: kernel K2 where
+        :func:`packed_layout_ok` holds, else K1, as the reference's
+        dispatcher falls through to its plain mode.
     """
-    if pack_x:
-        raise NotImplementedError("K2 not ported yet")
     if maps.dim() != 4 or maps.dtype not in _ENTRY:
         raise ValueError(f"maps must be (S, H, W, C) float32 or bfloat16, "
                          f"got {tuple(maps.shape)} {maps.dtype}")
@@ -119,7 +209,10 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
     devices = {t.device for t in (maps, s_idx, ys, xs)}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
+    packed = pack_x and packed_layout_ok(maps.shape)
     if maps.device.type == "cpu":
+        if packed:
+            return _sample_patches_packed_reference(maps, s_idx, ys, xs)
         return _sample_patches_reference(maps, s_idx, ys, xs)
     if maps.device.type != "cuda":
         raise ValueError(f"unsupported device {maps.device}")
@@ -128,4 +221,5 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
         raise ValueError("maps, ys and xs must be contiguous")
     if ys.numel() * maps.shape[3] >= 2 ** 39:   # 2^31 blocks of 256
         raise ValueError("K * N * C too large for one launch")
-    return _launch(maps, s_idx.to(torch.int32).contiguous(), ys, xs)
+    return _launch(maps, s_idx.to(torch.int32).contiguous(), ys, xs,
+                   packed=packed)

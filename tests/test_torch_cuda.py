@@ -1,4 +1,5 @@
-"""Card-only tests of the port's CUDA kernels (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels and of Slice B's estimators
+on the card (marker ``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -54,16 +55,105 @@ def test_kernel_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["octave0", "octave0_edge", "k13",
+                                  "octave0_bf16"])
+def test_packed_kernel_matches_plain_and_k1_on_card(cuda, case):
+    """K2 (pack_x=True, W % 16 == 0, 2C <= 128) against its plain version
+    and against K1 (the same function), max abs error <= 1e-5."""
+    shape = dict(S=5, H=960, W=1280, K=5120)
+    if case == "k13":
+        shape = dict(S=5, H=30, W=48, K=13)
+    maps, si, ys, xs = (t.to(cuda) for t in _problem(
+        8, **shape, edge=case.endswith("edge")))
+    if case.endswith("bf16"):
+        maps = maps.bfloat16()
+    before = (ps.LAUNCHES, ps.PACKED_LAUNCHES)
+    out = ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=25.7,
+                                  pack_x=True)
+    torch.cuda.synchronize()
+    assert (ps.LAUNCHES, ps.PACKED_LAUNCHES) == (before[0], before[1] + 1)
+    ref = ps._sample_patches_packed_reference(maps, si, ys, xs)
+    k1 = ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=25.7)
+    assert (out - ref).abs().max().item() <= 1e-5
+    assert (out - k1).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pack_x_falls_back_to_k1_on_card(cuda):
+    """W = 40 (not a multiple of 16): pack_x takes K1, as the reference's
+    dispatcher falls through to its plain mode."""
+    maps, si, ys, xs = (t.to(cuda) for t in _problem(9, S=5, H=30, W=40,
+                                                     K=80))
+    before = (ps.LAUNCHES, ps.PACKED_LAUNCHES)
+    ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=25.7,
+                            pack_x=True)
+    torch.cuda.synchronize()
+    assert (ps.LAUNCHES, ps.PACKED_LAUNCHES) == (before[0] + 1, before[1])
+
+
+@pytest.mark.cuda
+def test_relative_pose_on_card_matches_cpu(cuda):
+    """estimate_relative_pose on the card and on the CPU, same scene and
+    generator seed: the draws differ between devices, so outcomes are
+    compared: both within 0.5 deg / 1 deg of the truth and of each other,
+    inlier counts within 2%."""
+    from sara_tpu_torch.ransac.estimators import estimate_relative_pose
+
+    rs = np.random.RandomState(3)
+    n = 600
+    X = rs.uniform(-2, 2, (n, 3)) + np.array([0.0, 0.0, 6.0])
+    K = np.array([[800.0, 0, 320], [0, 800.0, 240], [0, 0, 1]])
+    a = 0.1
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([1.0, 0.1, 0.05])
+
+    def proj(P):
+        p = P @ K.T
+        return p[:, :2] / p[:, 2:]
+
+    u = proj(X) + rs.normal(scale=0.5, size=(n, 2))
+    v = proj(X @ R.T + t) + rs.normal(scale=0.5, size=(n, 2))
+    out = rs.choice(n, n // 4, replace=False)
+    v[out] = rs.uniform(0, 640, (len(out), 2))
+    results = []
+    for dev in ("cpu", cuda):
+        f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(0)
+        res, Re, te = estimate_relative_pose(
+            g, f(u), f(v), torch.ones(n, dtype=torch.bool, device=dev),
+            f(K), f(K), num_samples=500, min_inliers=100)
+        results.append((int(res.num_inliers), Re.double().cpu().numpy(),
+                        te.double().cpu().numpy()))
+
+    def rot_deg(A, B):
+        c = (np.trace(A.T @ B) - 1) / 2
+        return np.degrees(np.arccos(np.clip(c, -1, 1)))
+
+    def dir_deg(x, y):
+        c = abs(x @ y) / np.linalg.norm(x) / np.linalg.norm(y)
+        return np.degrees(np.arccos(np.clip(c, -1, 1)))
+
+    for n_inl, Re, te in results:
+        assert rot_deg(Re, R) <= 0.5 and dir_deg(te, t) <= 1.0
+    (n0, R0, t0), (n1, R1, t1) = results
+    assert rot_deg(R0, R1) <= 0.5 and dir_deg(t0, t1) <= 1.0
+    assert abs(n0 - n1) <= 0.02 * max(n0, n1)
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
     def refuse(*a):
         raise AssertionError("plain version called for a CUDA tensor")
 
     monkeypatch.setattr(ps, "_sample_patches_reference", refuse)
-    out = ps.sample_field_patches(
-        *(t.to(cuda) for t in _problem(6, S=3, H=64, W=80, K=7)),
-        max_sample_radius=11.0)
-    torch.cuda.synchronize()
-    assert out.is_cuda
+    monkeypatch.setattr(ps, "_sample_patches_packed_reference", refuse)
+    for pack_x in (False, True):
+        out = ps.sample_field_patches(
+            *(t.to(cuda) for t in _problem(6, S=3, H=64, W=80, K=7)),
+            max_sample_radius=11.0, pack_x=pack_x)
+        torch.cuda.synchronize()
+        assert out.is_cuda
 
 
 @pytest.mark.cuda

@@ -25,7 +25,10 @@ PORT_SOURCES = sorted((ROOT / "sara_tpu_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_out():
     code = ("import sys, sara_tpu_torch, sara_tpu_torch.convert, "
-            "sara_tpu_torch.features.api, sara_tpu_torch.matching; "
+            "sara_tpu_torch.features.api, sara_tpu_torch.matching, "
+            "sara_tpu_torch.mvg, sara_tpu_torch.ransac, "
+            "sara_tpu_torch.ransac.orsa, sara_tpu_torch.core.lie, "
+            "sara_tpu_torch.mvg.extra_solvers; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

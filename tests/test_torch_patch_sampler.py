@@ -1,10 +1,11 @@
-"""Port parity: the patch sampler (kernel K1) and its wrapper.
+"""Port parity: the patch sampler (kernels K1 and K2) and its wrapper.
 
-On the CPU the port's ``sample_field_patches`` takes its plain version;
-it is held to the JAX package's Pallas kernel run in interpret mode (as
-``tests/test_patch_sampler.py`` runs it) at 1e-5 absolute, on the same
-cases. The CUDA kernel itself is held to the plain version on the card by
-``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+On the CPU the port's ``sample_field_patches`` takes the plain version of
+the kernel it would launch; it is held to the JAX package's Pallas kernel
+run in interpret mode (as ``tests/test_patch_sampler.py`` runs it) at 1e-5
+absolute, on the same cases, in the plain mode (K1) and the x-packed mode
+(K2, ``pack_x=True``). The CUDA kernels themselves are held to their plain
+versions on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
 import numpy as np
@@ -98,16 +99,87 @@ def test_bf16_maps_accumulate_in_f32():
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("bad", ["pack_x", "float_idx", "f64_coords",
+@pytest.mark.parametrize("case", ["random", "edge", "k13"])
+def test_packed_matches_pallas_interpret(case):
+    """K2's plain version against the JAX package's x-packed kernel."""
+    rs = np.random.RandomState({"random": 13, "edge": 14, "k13": 17}[case])
+    kw = {"edge": case == "edge"}
+    if case == "k13":
+        kw["K"] = 13
+    maps, si, ys, xs = _random_problem(rs, **kw)          # W = 80
+    ref = jax_sample_field_patches(jnp.asarray(maps), jnp.asarray(si),
+                                   jnp.asarray(ys), jnp.asarray(xs),
+                                   max_sample_radius=11.0, block=8,
+                                   pack_x=True, interpret=True)
+    assert ref is not None
+    out = _port(maps, si, ys, xs, pack_x=True)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("W,C,packed", [(80, 36, True), (1280, 36, True),
+                                        (40, 36, False), (72, 36, False),
+                                        (80, 72, False)])
+def test_pack_x_dispatch_rule(monkeypatch, W, C, packed):
+    """pack_x takes K2 where 2C <= 128 and W % 16 == 0 (the reference's
+    rule), else K1; either way the samples are the same function."""
+    assert ps.packed_layout_ok((1, 8, W, C)) is packed
+    calls = []
+    for name in ("_sample_patches_reference",
+                 "_sample_patches_packed_reference"):
+        fn = getattr(ps, name)
+        monkeypatch.setattr(ps, name, lambda *a, _f=fn, _n=name:
+                            calls.append(_n) or _f(*a))
+    rs = np.random.RandomState(W + C)
+    maps, si, ys, xs = _random_problem(rs, H=8, W=W, C=C, K=5, rad=3.0)
+    out = _port(maps, si, ys, xs, pack_x=True)
+    assert calls == ["_sample_patches_packed_reference" if packed
+                     else "_sample_patches_reference"]
+    np.testing.assert_allclose(out.numpy(), _numpy_bilinear(maps, si, ys, xs),
+                               atol=1e-5, rtol=0)
+
+
+def test_pack_x_bf16_and_edge_columns():
+    """x at the last column (odd, so the cell past the row is clamped with
+    weight 0) and bf16 maps: K2's plain version equals K1's."""
+    rs = np.random.RandomState(8)
+    maps, si, ys, xs = (torch.from_numpy(a) for a in
+                        _random_problem(rs, H=16, W=32, K=6, rad=2.0))
+    xs[:, 0] = 31.0
+    xs[:, 1] = 1e6
+    xs[:, 2] = -3.0
+    maps = maps.bfloat16()
+    a = ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=3.0,
+                                pack_x=True)
+    b = ps._sample_patches_reference(maps, si, ys, xs)
+    assert a.dtype == torch.float32
+    assert (a - b).abs().max().item() <= 1e-5
+
+
+def test_tpu_window_fits_copies_the_reference_rule():
+    """The port's copy of the reference's fit rule decides as the JAX
+    dispatcher does (None exactly where it returns False)."""
+    rs = np.random.RandomState(9)
+    for H, W, rad in ((24, 24, 15.9), (64, 80, 11.0), (64, 76, 11.0),
+                      (40, 48, 5.0), (16, 16, 40.0), (200, 200, 30.0)):
+        maps, si, ys, xs = _random_problem(rs, H=H, W=W, K=2, rad=1.0)
+        fits = ps.tpu_window_fits(maps.shape, 4, rad)
+        got = jax_sample_field_patches(jnp.asarray(maps), jnp.asarray(si),
+                                       jnp.asarray(ys), jnp.asarray(xs),
+                                       max_sample_radius=rad, interpret=True)
+        assert fits is (got is not None), (H, W, rad)
+    assert ps.patch_extent(13.0) == 32 and ps.patch_extent(100.0) == -1
+
+
+@pytest.mark.parametrize("bad", ["float_idx", "f64_coords",
                                  "shape", "f16_maps", "meta"])
 def test_wrapper_rejects(bad):
     rs = np.random.RandomState(0)
     maps, si, ys, xs = (torch.from_numpy(a) for a in
                         _random_problem(rs, K=4))
     kw = {}
-    if bad == "pack_x":
-        kw["pack_x"] = True
-    elif bad == "float_idx":
+    if bad == "float_idx":
         si = si.float()
     elif bad == "f64_coords":
         ys = ys.double()
@@ -117,19 +189,19 @@ def test_wrapper_rejects(bad):
         maps = maps.half()
     else:
         maps, si, ys, xs = (t.to("meta") for t in (maps, si, ys, xs))
-    err = NotImplementedError if bad == "pack_x" else ValueError
-    before = ps.LAUNCHES
-    with pytest.raises(err):
+    before = (ps.LAUNCHES, ps.PACKED_LAUNCHES)
+    with pytest.raises(ValueError):
         ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=11.0,
                                 **kw)
-    assert ps.LAUNCHES == before
+    assert (ps.LAUNCHES, ps.PACKED_LAUNCHES) == before
 
 
 def test_cpu_path_counts_no_launch():
     rs = np.random.RandomState(0)
-    before = ps.LAUNCHES
-    _port(*_random_problem(rs, K=3))
-    assert ps.LAUNCHES == before
+    before = (ps.LAUNCHES, ps.PACKED_LAUNCHES)
+    for pack_x in (False, True):
+        _port(*_random_problem(rs, K=3), pack_x=pack_x)
+    assert (ps.LAUNCHES, ps.PACKED_LAUNCHES) == before
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):

@@ -196,3 +196,26 @@ def test_slice_configuration_kernel_path_equals_gather_path(image):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     m = a.mask
     assert (a.descriptors[m] - b.descriptors[m]).abs().max() <= 1e-5
+
+
+def test_kernel_sampler_nearest_on_a_declined_geometry():
+    """24x24 maps: the JAX "pallas" sampler declines the window and takes
+    nearest gathers; the port's "kernel" sampler must do the same with
+    bilinear=False (the geometry of tests/test_patch_sampler.py's
+    fallback test), to 1e-6."""
+    rs = np.random.RandomState(0)
+    S, H, W, K = 3, 24, 24, 6
+    maps = rs.rand(S, H, W, 36).astype(np.float32)
+    x = rs.uniform(4, W - 5, K).astype(np.float32)
+    y = rs.uniform(4, H - 5, K).astype(np.float32)
+    s = rs.uniform(0, S - 1, K).astype(np.float32)
+    th = rs.uniform(-3, 3, K).astype(np.float32)
+    sig = (1.6, 2.0, 2.5)
+    ref = jsift.sift_descriptors_field(
+        *(jnp.asarray(a) for a in (maps, x, y, s, th)), sig,
+        bilinear=False, sampler="pallas")
+    out = tsift.sift_descriptors_field(
+        *(torch.from_numpy(a) for a in (maps, x, y, s, th)), sig,
+        bilinear=False, sampler="kernel")
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6,
+                               rtol=0)
