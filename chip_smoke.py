@@ -11,21 +11,31 @@ raises, so the script exits nonzero and prints no result line):
 1. require a CUDA device; print the card's name and power limit;
 2. build every CUDA kernel of the main path from the sources in
    ``sara_tpu_torch/ops/csrc`` (one nvcc process each, all at once);
-3. hold each kernel (K1, and K2 = the x-packed mode) against its plain
-   PyTorch version on the card, at the main path's shapes (max abs error
-   <= 1e-5);
+3. hold each kernel (K1, and K2 = the x-packed mode), in both its variants
+   (vector and general), against its plain PyTorch version on the card, at
+   the main path's shapes and on the edge cases (last row and column, odd
+   and even x0, int32 and int64 indices, C = 37 and a misaligned base,
+   which take the general variant; NaN coordinates, vector against
+   general), max abs error <= 1e-5, checking by the counters which variant
+   the wrapper took;
 4. drive the frame path through the entry points a user calls: two 480x640
    frames (B is A shifted 16 px) through ``compute_sift_keypoints`` with the
    bilinear kernel-sampler configuration, then ``match_descriptors``. The
-   launch counts are set to 0 just before and read just after; then check
-   the keypoints, the 16-px shift of the matches, and that the gather
-   sampler gives the same keypoints and descriptors;
+   launch counts are set to 0 just before and read just after (12 launches
+   of K1's vector variant, no other kernel, no index copy); then check the
+   keypoints, the 16-px shift of the matches, and that the gather sampler
+   gives the same keypoints and descriptors;
 5. drive K2's path: frame A's six sampler launches again through
    ``sample_field_patches(..., pack_x=True)`` (counts set to 0 just before,
-   read just after: octaves 0-4 take K2, octave 5 takes K1), each output
-   held to K2's plain version and to K1's output;
-6. time each kernel, its plain version and a PyTorch library call on the
-   inputs the main path gave it, beside the card's bound for that work;
+   read just after: octaves 0-4 take K2, octave 5 takes K1, all in the
+   vector variant), each output held to K2's plain version and to K1's
+   output;
+6. time each kernel on the inputs the main path gave it: the vector
+   variant and the general variant (the first Hopper kernel) in turns
+   (general, vector, vector, general), the plain version, a PyTorch library
+   call, an empty one-block kernel (the launch floor) and a contiguous copy
+   of as many bytes as the kernel requests, beside the card's bound for
+   that work;
 7. drive the two-view path (Slice B) at full size: ``estimate_homography``
    on the frame pair's matches, and ``estimate_relative_pose``,
    ``estimate_fundamental`` and ``estimate_absolute_pose`` on a synthetic
@@ -109,9 +119,17 @@ def timed_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
 
 
 def sampler_problem(g: torch.Generator, S, H, W, K, N=16, C=36, rad=25.7,
-                    edge=False, dtype=torch.float32):
+                    edge=False, dtype=torch.float32, index=torch.int64,
+                    pins=False, misaligned=False, nan=False):
+    """Sampler inputs on the card. ``edge``: centres pinned to the border;
+    ``pins``: samples exactly on the last row and column and at odd and
+    even x0; ``misaligned``: maps at a base one element past an aligned
+    one; ``nan``: some NaN coordinates."""
     dev = torch.device("cuda")
     maps = torch.rand((S, H, W, C), generator=g, device=dev).to(dtype)
+    if misaligned:
+        flat = torch.empty(maps.numel() + 1, dtype=dtype, device=dev)
+        maps = flat[1:].view(maps.shape).copy_(maps)
     if edge:
         pins_y = torch.tensor([0.0, 1.0, H - 2.0, H - 1.0], device=dev)
         pins_x = torch.tensor([0.0, 1.0, W - 2.0, W - 1.0], device=dev)
@@ -123,8 +141,95 @@ def sampler_problem(g: torch.Generator, S, H, W, K, N=16, C=36, rad=25.7,
     spread = lambda: (torch.rand((K, N), generator=g, device=dev) * 2 - 1) * rad
     ys = (cy[:, None] + spread()).contiguous()
     xs = (cx[:, None] + spread()).contiguous()
-    si = torch.randint(0, S, (K,), generator=g, device=dev, dtype=torch.int32)
+    if pins:
+        ys[:, :4] = H - 1.0                   # y exactly on the last row
+        xs[:, 4:8] = W - 1.0                  # x exactly on the last column
+        xs[:, 8] = W - 1.5                    # even x0 = W - 2
+        xs[:, 9] = W - 2.5                    # odd x0 = W - 3
+        xs[:, 10:16] = 20.0 + 0.75 * torch.arange(6, device=dev)
+    if nan:
+        ys[::3, 0] = float("nan")
+        xs[::2, 1] = float("nan")
+        ys[1::4, 2] = xs[1::4, 2] = float("nan")
+    si = torch.randint(0, S, (K,), generator=g, device=dev).to(index)
     return maps, si, ys, xs
+
+
+def variant_counts(ps) -> dict:
+    return {k: v for k, v in ps.counts().items() if k != "index copies"}
+
+
+def phase_kernels_vs_plain(ps) -> dict:
+    """K1 and K2, each in both variants, against their plain versions: the
+    main path's octave-0 shape (random and edge-pinned centres, f32 and
+    bf16), a ragged K = 13, the octave-5 shape, an int32 index, samples on
+    the last row and column and at odd and even x0; C = 37 and a
+    misaligned base, which the wrapper sends to the general variant; and
+    NaN coordinates, vector against general (the plain version has no
+    answer there). Returns the worst error of each (kernel, variant)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    octave0 = dict(S=5, H=960, W=1280, K=5120)
+    small = dict(S=5, H=120, W=160, K=256)
+    cases = [("octave0", octave0),
+             ("octave0 edge", dict(octave0, edge=True)),
+             ("octave0 bf16", dict(octave0, dtype=torch.bfloat16)),
+             ("K=13", dict(S=5, H=120, W=160, K=13)),
+             ("octave5", dict(S=5, H=30, W=40, K=80)),
+             ("int32 index", dict(S=5, H=480, W=640, K=3750,
+                                  index=torch.int32)),
+             ("last row/column, odd/even x0", dict(small, pins=True)),
+             ("C=37", dict(small, C=37)),
+             ("misaligned", dict(small, misaligned=True)),
+             ("bf16 misaligned", dict(small, misaligned=True,
+                                      dtype=torch.bfloat16))]
+    worst = {(k, v): 0.0 for k in ("K1", "K2") for v in ("vector", "general")}
+    for packed in (False, True):
+        kname = "K2" if packed else "K1"
+        plain = (ps._sample_patches_packed_reference if packed
+                 else ps._sample_patches_reference)
+        for name, kw in cases:
+            if packed and not ps.packed_layout_ok((1, 1, kw["W"], 36)):
+                continue
+            maps, si, ys, xs = sampler_problem(g, **kw)
+            vector = ps.vector_layout_ok(maps)
+            check(vector == (name not in ("C=37", "misaligned",
+                                          "bf16 misaligned")),
+                  f"{name}: vector_layout_ok is {vector}")
+            ref = plain(maps, si, ys, xs)
+            before = variant_counts(ps)
+            outs = {"vector" if vector else "general":
+                    ps.sample_field_patches(maps, si, ys, xs,
+                                            max_sample_radius=25.7,
+                                            pack_x=packed)}
+            torch.cuda.synchronize()
+            after = variant_counts(ps)
+            moved = [k for k in after if after[k] != before[k]]
+            want = kname + ("" if vector else " general")
+            check(moved == [want] and after[want] == before[want] + 1,
+                  f"{kname} {name}: launched {moved}, expected {want}")
+            if vector:
+                outs["general"] = ps._launch(maps, si, ys, xs, packed=packed,
+                                             vector=False)
+            for variant, out in outs.items():
+                check(out.shape == ref.shape,
+                      f"{name}: shape {tuple(out.shape)}")
+                err = (out - ref).abs().max().item()
+                log(f"{kname} {variant} vs plain [{name}] "
+                    f"{tuple(maps.shape)} {str(maps.dtype)[6:]} "
+                    f"{str(si.dtype)[6:]} K={ys.shape[0]}: "
+                    f"max_abs_err={err:.3e}")
+                check(err <= TOLERANCE, f"{kname} {variant} {name}: {err}")
+                worst[kname, variant] = max(worst[kname, variant], err)
+        maps, si, ys, xs = sampler_problem(g, **small, nan=True)
+        new = ps._launch(maps, si, ys, xs, packed=packed, vector=True)
+        old = ps._launch(maps, si, ys, xs, packed=packed, vector=False)
+        torch.cuda.synchronize()
+        err = (new - old).abs().max().item()
+        log(f"{kname} vector vs general [NaN coordinates]: "
+            f"max_abs_err={err:.3e}")
+        check(bool(torch.isfinite(new).all()) and err <= TOLERANCE,
+              f"{kname} NaN coordinates: vector vs general {err}")
+    return worst
 
 
 def sampler_library_call(maps, s_idx, ys, xs):
@@ -161,51 +266,12 @@ def sampler_bound_ms(maps, s_idx, ys, xs) -> tuple[float, str]:
     rows = torch.cat([(s * H + yy) * W + xx for yy, xx in
                       ((y0, x0), (y0, x1), (y1, x0), (y1, x1))])
     n_rows = int(torch.unique(rows).numel())
-    nbytes = (K * N * C * 4 + 2 * K * N * 4 + K * 4
+    nbytes = (K * N * C * 4 + 2 * K * N * 4 + K * s_idx.element_size()
               + n_rows * C * maps.element_size())
     flops = 13 * K * N * C
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / H100_F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def phase_kernels_vs_plain(ps) -> tuple[float, float]:
-    """K1 and K2 against their plain versions on synthetic cases at the main
-    path's shapes: octave 0 (random and edge-pinned centres, f32 and bf16),
-    a ragged K = 13, and (K1) the octave-5 shape. Returns the worst error
-    of each kernel."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    octave0 = dict(S=5, H=960, W=1280, K=5120)
-    cases = [("octave0", octave0),
-             ("octave0 edge", dict(octave0, edge=True)),
-             ("octave0 bf16", dict(octave0, dtype=torch.bfloat16)),
-             ("K=13", dict(S=5, H=120, W=160, K=13)),
-             ("octave5", dict(S=5, H=30, W=40, K=80))]
-    worst = {False: 0.0, True: 0.0}
-    for packed in (False, True):
-        name_k = "patch_sampler_packed" if packed else "patch_sampler"
-        plain = (ps._sample_patches_packed_reference if packed
-                 else ps._sample_patches_reference)
-        for name, kw in cases:
-            if packed and not ps.packed_layout_ok((1, 1, kw["W"], 36)):
-                continue
-            maps, si, ys, xs = sampler_problem(g, **kw)
-            before = ps.PACKED_LAUNCHES
-            out = ps.sample_field_patches(maps, si, ys, xs,
-                                          max_sample_radius=25.7,
-                                          pack_x=packed)
-            ref = plain(maps, si, ys, xs)
-            torch.cuda.synchronize()
-            check(ps.PACKED_LAUNCHES == before + packed,
-                  f"{name_k} {name}: wrong kernel launched")
-            check(out.shape == ref.shape, f"{name}: shape {tuple(out.shape)}")
-            err = (out - ref).abs().max().item()
-            log(f"{name_k} vs plain [{name}] {tuple(maps.shape)} "
-                f"{str(maps.dtype)[6:]} K={ys.shape[0]}: "
-                f"max_abs_err={err:.3e}")
-            check(err <= TOLERANCE, f"{name_k} {name}: error {err}")
-            worst[packed] = max(worst[packed], err)
-    return worst[False], worst[True]
 
 
 def phase_main_path(ps, card: str):
@@ -234,7 +300,7 @@ def phase_main_path(ps, card: str):
 
     ps.sample_field_patches = recording
     try:
-        ps.LAUNCHES = ps.PACKED_LAUNCHES = 0
+        ps.reset_counts()
         t0 = time.perf_counter()
         ka = compute_sift_keypoints(frame_a, params)
         torch.cuda.synchronize()
@@ -245,15 +311,18 @@ def phase_main_path(ps, card: str):
         m = match_descriptors(ka, kb, MatchParams(ratio=0.8))
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        launches, packed = ps.LAUNCHES, ps.PACKED_LAUNCHES
+        counts = ps.counts()
     finally:
         ps.sample_field_patches = wrapper
     times = [(t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3]
     log(f"main path: frame A {times[0]:.2f} ms, frame B {times[1]:.2f} ms, "
         f"match {times[2]:.2f} ms ({card})")
-    log(f"patch_sampler launches on the main path: {launches}")
-    check(launches == 12 and packed == 0, f"expected 12 K1 launches "
-          f"(6 octaves x 2 frames) and no K2, got {launches} and {packed}")
+    log(f"patch_sampler launches on the main path: {json.dumps(counts)}")
+    launches = counts["K1"]
+    check(counts == {"K1": 12, "K1 general": 0, "K2": 0, "K2 general": 0,
+                     "index copies": 0},
+          "expected 12 launches of K1's vector variant (6 octaves x 2 "
+          "frames), no other kernel and no index copy")
 
     for name, k in (("A", ka), ("B", kb)):
         check(k.descriptors.shape == (params.total_capacity, 128),
@@ -301,16 +370,20 @@ def phase_packed_path(ps, recorded):
     """K2's path: frame A's six sampler launches through
     ``sample_field_patches(..., pack_x=True)``. Octaves 0-4 (W = 1280 .. 80,
     multiples of 16) take K2, octave 5 (W = 40) takes K1, as the
-    reference's dispatcher rule says. Returns (K2 launches, K1 launches,
-    worst error against K2's plain version and against K1)."""
-    ps.LAUNCHES = ps.PACKED_LAUNCHES = 0
+    reference's dispatcher rule says, both in the vector variant. Returns
+    (K2 launches, K1 launches, worst error against K2's plain version and
+    against K1)."""
+    ps.reset_counts()
     outs = [ps.sample_field_patches(*args, max_sample_radius=0, pack_x=True)
             for args in recorded]
     torch.cuda.synchronize()
-    k2, k1 = ps.PACKED_LAUNCHES, ps.LAUNCHES
-    log(f"pack_x path: K2 launches {k2}, K1 launches {k1}")
-    check(k2 == 5 and k1 == 1, f"pack_x path: expected 5 K2 launches and "
-          f"1 K1 launch, got {k2} and {k1}")
+    counts = ps.counts()
+    k2, k1 = counts["K2"], counts["K1"]
+    log(f"pack_x path: launches {json.dumps(counts)}")
+    check(counts == {"K1": 1, "K1 general": 0, "K2": 5, "K2 general": 0,
+                     "index copies": 0},
+          "pack_x path: expected 5 launches of K2's vector variant and 1 "
+          "of K1's, and nothing else")
     worst = 0.0
     for octave, ((maps, s_idx, ys, xs), out) in enumerate(zip(recorded,
                                                               outs)):
@@ -366,38 +439,64 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
                  "device_ms": dev_us(e) / 1e3} for e in events[:top]]}))
 
 
+def sampler_requested_bytes(maps, s_idx, ys) -> int:
+    """Bytes the kernels request: outputs, coordinates and indices once,
+    and four tap rows per sample (shared rows counted each time)."""
+    K, N = ys.shape
+    C = maps.shape[3]
+    return (K * N * C * 4 + 2 * K * N * 4 + K * s_idx.element_size()
+            + 4 * K * N * C * maps.element_size())
+
+
 def phase_timing(ps, recorded, packed: bool = False):
-    """Kernel, plain version and library call on each frame-A launch's own
-    inputs, beside the bound; returns per-launch rows. ``packed``: K2 and
-    its plain version, on the launches K2 takes (octaves 0-4)."""
+    """On each frame-A launch's own inputs: the kernel's vector variant and
+    its general variant (the first Hopper kernel) timed in turns (general,
+    vector, vector, general), its plain version, a library call, the
+    launch floor and a contiguous copy (``Tensor.copy_``) that moves as many
+    bytes as the kernel requests, beside the bound; returns per-launch
+    rows. ``packed``: K2 and its plain version, on the launches K2 takes
+    (octaves 0-4)."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     plain = (ps._sample_patches_packed_reference if packed
              else ps._sample_patches_reference)
-    name = "patch_sampler_packed" if packed else "patch_sampler"
+    name = "K2" if packed else "K1"
     rows = []
     for octave, (maps, s_idx, ys, xs) in enumerate(recorded):
         if packed and not ps.packed_layout_ok(maps.shape):
             continue
-        s32 = s_idx.to(torch.int32)
-        out = ps.sample_field_patches(maps, s32, ys, xs, max_sample_radius=0,
-                                      pack_x=packed)
-        ref = plain(maps, s32, ys, xs)
-        lib_call, lib_view = sampler_library_call(maps, s32, ys, xs)
+        run = {vector: (lambda v=vector: ps._launch(
+            maps, s_idx, ys, xs, packed=packed, vector=v))
+            for vector in (False, True)}
+        out = ps.sample_field_patches(maps, s_idx, ys, xs,
+                                      max_sample_radius=0, pack_x=packed)
+        ref = plain(maps, s_idx, ys, xs)
+        old = run[False]()
+        lib_call, lib_view = sampler_library_call(maps, s_idx, ys, xs)
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
+        old_err = (old - ref).abs().max().item()
         lib_err = (lib_view(lib_call()) - out).abs().max().item()
-        check(err <= TOLERANCE, f"octave {octave}: kernel vs plain {err}")
-        bound, bound_by = sampler_bound_ms(maps, s32, ys, xs)
+        check(err <= TOLERANCE and old_err <= TOLERANCE,
+              f"{name} octave {octave}: vector / general vs plain "
+              f"{err} / {old_err}")
+        bound, bound_by = sampler_bound_ms(maps, s_idx, ys, xs)
+        turns = [timed_ms(run[v], flush=flush)
+                 for v in (False, True, True, False)]
+        requested = sampler_requested_bytes(maps, s_idx, ys)
+        src = torch.empty(requested // 8, dtype=torch.float32, device="cuda")
+        dst = torch.empty_like(src)       # reads and writes requested / 2
         row = {
             "octave": octave, "maps": list(maps.shape), "K": ys.shape[0],
-            "N": ys.shape[1], "max_abs_err": err,
-            "ms": timed_ms(lambda: ps.sample_field_patches(
-                maps, s32, ys, xs, max_sample_radius=0, pack_x=packed),
-                flush=flush),
-            "plain_ms": timed_ms(lambda: plain(maps, s32, ys, xs),
+            "N": ys.shape[1], "max_abs_err": err, "old_max_abs_err": old_err,
+            "ms": (turns[1] + turns[2]) / 2, "old_ms": (turns[0] + turns[3]) / 2,
+            "turns_ms": turns,
+            "plain_ms": timed_ms(lambda: plain(maps, s_idx, ys, xs),
                                  flush=flush),
             "library_ms": timed_ms(lib_call, flush=flush),
             "library_max_abs_err": lib_err,
+            "floor_ms": timed_ms(ps.launch_floor, flush=flush),
+            "requested_bytes": requested,
+            "copy_ms": timed_ms(lambda: dst.copy_(src), flush=flush),
             "bound_ms": bound, "bound_by": bound_by,
         }
         log(f"{name} at main-path shape", json.dumps(row))
@@ -413,9 +512,8 @@ def compare_k1_k2(ps, recorded) -> None:
     for octave, (maps, s_idx, ys, xs) in enumerate(recorded):
         if not ps.packed_layout_ok(maps.shape):
             continue
-        s32 = s_idx.to(torch.int32)
         run = {packed: (lambda p=packed: ps.sample_field_patches(
-            maps, s32, ys, xs, max_sample_radius=0, pack_x=p))
+            maps, s_idx, ys, xs, max_sample_radius=0, pack_x=p))
             for packed in (False, True)}
         t = [timed_ms(run[p], flush=flush) for p in (False, True, True,
                                                       False)]
@@ -628,7 +726,7 @@ def main() -> int:
     for name, text in _build.BUILD_LOGS.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
 
-    worst_k1, worst_k2 = phase_kernels_vs_plain(ps)
+    worst = phase_kernels_vs_plain(ps)
     recorded, launches, frames = phase_main_path(ps, card)
     k2_launches, k1_on_k2_path, k2_path_err = phase_packed_path(ps, recorded)
     rows = phase_timing(ps, recorded)
@@ -640,28 +738,40 @@ def main() -> int:
     check(not any(m.split(".")[0] in ("jax", "sara_tpu")
                   for m in sys.modules), "JAX or sara_tpu was imported")
 
-    def entry(name, replaces, rows, launches, worst, per, **extra):
+    def entry(name, kname, replaces, rows, launches, worst_path, per,
+              **extra):
         total = {k: sum(r[k] for r in rows)
-                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                 for k in ("ms", "old_ms", "plain_ms", "library_ms",
+                           "bound_ms", "floor_ms", "copy_ms")}
         return {
             "name": name, "route": "cuda",
             "source": "sara_tpu_torch/ops/csrc/patch_sampler.cu",
             "replaces": replaces, "launches": launches,
-            "max_abs_err": max([worst] + [r["max_abs_err"] for r in rows]),
+            "max_abs_err": max([worst[kname, "vector"], worst_path]
+                               + [r["max_abs_err"] for r in rows]),
             "ms": total["ms"], "kernel_ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations",
-            "library_ms": total["library_ms"], "per": per, **extra}
+            "library_ms": total["library_ms"],
+            "floor_ms": total["floor_ms"], "copy_ms": total["copy_ms"],
+            "old_ms": total["old_ms"],
+            "old": "the general variant (one thread per output element, "
+                   "the first Hopper kernel), timed in turns with the vector "
+                   "variant",
+            "old_max_abs_err": max([worst[kname, "general"]]
+                                   + [r["old_max_abs_err"] for r in rows]),
+            "per": per, **extra}
 
     kernels = [
-        entry("patch_sampler", "sara_tpu/ops/patch_sampler.py:43", rows,
-              launches + k1_on_k2_path, worst_k1,
+        entry("patch_sampler", "K1", "sara_tpu/ops/patch_sampler.py:170",
+              rows, launches + k1_on_k2_path, 0.0,
               "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
                                 "pack_x": k1_on_k2_path}),
-        entry("patch_sampler_packed", "sara_tpu/ops/patch_sampler.py:94",
-              rows_k2, k2_launches, max(worst_k2, k2_path_err),
+        entry("patch_sampler_packed", "K2",
+              "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
+              k2_path_err,
               "frame: the 5 pack_x launches (octaves 0-4) of one 480x640 "
               "frame, summed"),
     ]

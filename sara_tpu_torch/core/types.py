@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from sara_tpu_torch import resolve_device
+
 
 class Keypoints(NamedTuple):
     """A fixed-capacity set of oriented scale-space keypoints.
@@ -40,7 +42,9 @@ class Keypoints(NamedTuple):
 
     @staticmethod
     def empty(capacity: int, descriptor_dim: int = 128,
-              device: str | torch.device = "cpu") -> "Keypoints":
+              device: str | torch.device | None = None) -> "Keypoints":
+        """An empty set on ``device`` (None: the card, or raise)."""
+        device = resolve_device(device)
         f32 = dict(dtype=torch.float32, device=device)
         return Keypoints(
             xy=torch.zeros((capacity, 2), **f32),
@@ -76,7 +80,9 @@ class Matches(NamedTuple):
 
     @staticmethod
     def empty(capacity: int,
-              device: str | torch.device = "cpu") -> "Matches":
+              device: str | torch.device | None = None) -> "Matches":
+        """An empty set on ``device`` (None: the card, or raise)."""
+        device = resolve_device(device)
         return Matches(
             i=torch.zeros((capacity,), dtype=torch.int32, device=device),
             j=torch.zeros((capacity,), dtype=torch.int32, device=device),

@@ -15,13 +15,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sara_tpu_torch import resolve_device
+
 
 def gaussian_kernel_1d(sigma: float, truncate: float = 4.0,
                        dtype: torch.dtype = torch.float32,
-                       device: str | torch.device = "cpu") -> torch.Tensor:
-    """Normalized 1-D Gaussian taps, radius = ceil(truncate * sigma)."""
+                       device: str | torch.device | None = None
+                       ) -> torch.Tensor:
+    """Normalized 1-D Gaussian taps, radius = ceil(truncate * sigma), on
+    ``device`` (None: the card, or raise)."""
     radius = max(1, int(math.ceil(truncate * float(sigma))))
-    x = torch.arange(-radius, radius + 1, dtype=dtype, device=device)
+    x = torch.arange(-radius, radius + 1, dtype=dtype,
+                     device=resolve_device(device))
     k = torch.exp(-(x * x) / (2.0 * float(sigma) ** 2))
     return k / k.sum()
 

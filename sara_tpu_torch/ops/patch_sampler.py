@@ -14,11 +14,15 @@ On a CUDA tensor :func:`sample_field_patches` launches a kernel of
 replaces the TPU kernel ``_sampler_kernel`` in its plain mode, or, with
 ``pack_x=True`` where the reference's layout rule allows it, K2, which
 replaces its x-packed mode (the field read as (S, H, W/2, 2C) cells of
-x-pairs). The TPU kernel staged one window per keypoint in VMEM and
-declined geometries whose window did not fit; the CUDA kernels read their
-taps straight from device memory, so they sample every geometry and never
-return ``None``. On a CPU tensor the wrapper takes the plain version of the
-kernel it would launch, and only because the tensor lies on the CPU.
+x-pairs). Each comes in two variants: the vector variant (a team of C/4
+lanes per sample, 16-byte taps), taken wherever :func:`vector_layout_ok`
+holds, and the general variant (one thread per output element) for the
+layouts it cannot read. The TPU kernel staged one window per keypoint in
+VMEM and declined geometries whose window did not fit; the CUDA kernels
+read their taps straight from device memory, so they sample every geometry
+and never return ``None``. On a CPU tensor the wrapper takes the plain
+version of the kernel it would launch, and only because the tensor lies on
+the CPU.
 """
 
 from __future__ import annotations
@@ -29,15 +33,23 @@ import torch
 
 from sara_tpu_torch.ops import _build
 
-# Launches of each CUDA kernel in this process (K1 and K2); a run reads
-# them to show that its path went through the kernels.
-LAUNCHES = 0
-PACKED_LAUNCHES = 0
+# Launches of each CUDA kernel in this process, by kernel and variant; a
+# run reads them to show that its path went through the kernels.
+LAUNCHES = 0                  # K1, vector variant
+GENERAL_LAUNCHES = 0          # K1, general variant
+PACKED_LAUNCHES = 0           # K2, vector variant
+PACKED_GENERAL_LAUNCHES = 0   # K2, general variant
+# Copies of s_idx the wrapper made on the card (an index that is neither
+# int32 nor int64, or not contiguous); the kernels read int32 and int64 in
+# place.
+INDEX_COPIES = 0
 
-_ENTRY = {torch.float32: "sara_sample_patches_f32",
-          torch.bfloat16: "sara_sample_patches_bf16"}
-_PACKED_ENTRY = {torch.float32: "sara_sample_patches_packed_f32",
-                 torch.bfloat16: "sara_sample_patches_packed_bf16"}
+_DTYPE_SUFFIX = {torch.float32: "_f32", torch.bfloat16: "_bf16"}
+_INDEX_SUFFIX = {torch.int32: "", torch.int64: "_i64"}
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# The library's ctypes functions by entry name, argtypes and restype set
+# once.
+_ENTRIES: dict = {}
 
 # The reference's budget for its double-buffered VMEM window scratch; kept
 # only for :func:`tpu_window_fits`.
@@ -85,6 +97,30 @@ def packed_layout_ok(shape) -> bool:
     width that is a multiple of 16. Elsewhere ``pack_x`` takes K1."""
     _, _, W, C = shape
     return 2 * C <= 128 and W % 16 == 0
+
+
+def counts() -> dict[str, int]:
+    """The launch counts by kernel and variant, and the index copies."""
+    return {"K1": LAUNCHES, "K1 general": GENERAL_LAUNCHES,
+            "K2": PACKED_LAUNCHES, "K2 general": PACKED_GENERAL_LAUNCHES,
+            "index copies": INDEX_COPIES}
+
+
+def reset_counts() -> None:
+    global LAUNCHES, GENERAL_LAUNCHES, PACKED_LAUNCHES
+    global PACKED_GENERAL_LAUNCHES, INDEX_COPIES
+    LAUNCHES = GENERAL_LAUNCHES = PACKED_LAUNCHES = 0
+    PACKED_GENERAL_LAUNCHES = INDEX_COPIES = 0
+
+
+def vector_layout_ok(maps: torch.Tensor) -> bool:
+    """Whether the vector variant reads ``maps``: C a positive multiple of 4
+    (a lane's four channels) and at most 1024 (a team fits one block), and a
+    base address aligned for its 16-byte (float32) or 8-byte (bfloat16)
+    loads. Elsewhere the general variant runs."""
+    C = maps.shape[-1]
+    return (0 < C <= 1024 and C % 4 == 0
+            and maps.data_ptr() % (4 * maps.element_size()) == 0)
 
 
 def _sample_patches_reference(maps: torch.Tensor, s_idx: torch.Tensor,
@@ -147,29 +183,78 @@ def _sample_patches_packed_reference(maps: torch.Tensor,
     return out
 
 
+def _entry(name: str, argtypes=_ARGTYPES):
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(_build.load("patch_sampler"), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
+    return fn
+
+
 def _launch(maps: torch.Tensor, s_idx: torch.Tensor, ys: torch.Tensor,
-            xs: torch.Tensor, packed: bool = False) -> torch.Tensor:
-    global LAUNCHES, PACKED_LAUNCHES
+            xs: torch.Tensor, packed: bool = False,
+            vector: bool = True) -> torch.Tensor:
+    """Launch one variant of K1 or K2 on checked CUDA inputs (``s_idx``
+    int32 or int64, contiguous) and count it."""
+    global LAUNCHES, GENERAL_LAUNCHES, PACKED_LAUNCHES, PACKED_GENERAL_LAUNCHES
     S, H, W, C = maps.shape
     K, N = ys.shape
-    entry = (_PACKED_ENTRY if packed else _ENTRY)[maps.dtype]
-    fn = getattr(_build.load("patch_sampler"), entry)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    name = ("sara_sample_patches" + ("_packed" if packed else "")
+            + ("_vec" if vector else "") + _DTYPE_SUFFIX[maps.dtype]
+            + _INDEX_SUFFIX[s_idx.dtype])
+    fn = _entry(name)
     out = torch.empty((K, N, C), dtype=torch.float32, device=maps.device)
     with torch.cuda.device(maps.device):
         stream = torch.cuda.current_stream(maps.device).cuda_stream
         err = fn(maps.data_ptr(), s_idx.data_ptr(), ys.data_ptr(),
                  xs.data_ptr(), out.data_ptr(), S, H, W, C, K, N, stream)
     if err != 0:
-        raise RuntimeError(f"patch_sampler kernel {entry} launch failed: "
+        raise RuntimeError(f"patch_sampler kernel {name} launch failed: "
                            f"cudaError_t {err}")
-    if packed:
+    if packed and vector:
         PACKED_LAUNCHES += 1
-    else:
+    elif packed:
+        PACKED_GENERAL_LAUNCHES += 1
+    elif vector:
         LAUNCHES += 1
+    else:
+        GENERAL_LAUNCHES += 1
     return out
+
+
+def _sample_on_card(maps: torch.Tensor, s_idx: torch.Tensor,
+                    ys: torch.Tensor, xs: torch.Tensor,
+                    packed: bool) -> torch.Tensor:
+    """The card's side of :func:`sample_field_patches`: layout checks, the
+    index as it comes (int32 or int64), and the variant
+    :func:`vector_layout_ok` picks."""
+    global INDEX_COPIES
+    if not (maps.is_contiguous() and ys.is_contiguous()
+            and xs.is_contiguous()):
+        raise ValueError("maps, ys and xs must be contiguous")
+    S, H, W, C = maps.shape
+    # 32-bit sample and pixel indices; the general variant's grid of
+    # 256-thread blocks over K * N * C stays below 2^31 blocks.
+    if ys.numel() >= 2 ** 31 or S * H * W >= 2 ** 31 or (
+            ys.numel() * C >= 2 ** 39):
+        raise ValueError("K * N or S * H * W too large for one launch")
+    if s_idx.dtype not in _INDEX_SUFFIX or not s_idx.is_contiguous():
+        s_idx = s_idx.to(torch.int32).contiguous()
+        INDEX_COPIES += 1
+    return _launch(maps, s_idx, ys, xs, packed=packed,
+                   vector=vector_layout_ok(maps))
+
+
+def launch_floor() -> None:
+    """Launch the empty one-block kernel ``sara_launch_floor`` on the
+    current CUDA stream: timed, it is the floor under any launch of K1 or
+    K2."""
+    fn = _entry("sara_launch_floor", [ctypes.c_void_p])
+    err = fn(torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sara_launch_floor failed: cudaError_t {err}")
 
 
 def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
@@ -185,7 +270,8 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
 
     Args:
       maps: (S, H, W, C) float32 or bfloat16 field, contiguous.
-      s_idx: (K,) integer scale-slice index per keypoint (clamped to S - 1).
+      s_idx: (K,) integer scale-slice index per keypoint (clamped to S - 1);
+        int32 and int64 are read in place.
       ys, xs: (K, N) float32 sample positions in map pixels, contiguous.
       max_sample_radius, block: kept for the signature of the JAX twin,
         where they size the TPU window; they do not change the result.
@@ -193,7 +279,7 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
         :func:`packed_layout_ok` holds, else K1, as the reference's
         dispatcher falls through to its plain mode.
     """
-    if maps.dim() != 4 or maps.dtype not in _ENTRY:
+    if maps.dim() != 4 or maps.dtype not in _DTYPE_SUFFIX:
         raise ValueError(f"maps must be (S, H, W, C) float32 or bfloat16, "
                          f"got {tuple(maps.shape)} {maps.dtype}")
     if ys.dim() != 2 or ys.shape != xs.shape or s_idx.shape != ys.shape[:1]:
@@ -216,10 +302,4 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
         return _sample_patches_reference(maps, s_idx, ys, xs)
     if maps.device.type != "cuda":
         raise ValueError(f"unsupported device {maps.device}")
-    if not (maps.is_contiguous() and ys.is_contiguous()
-            and xs.is_contiguous()):
-        raise ValueError("maps, ys and xs must be contiguous")
-    if ys.numel() * maps.shape[3] >= 2 ** 39:   # 2^31 blocks of 256
-        raise ValueError("K * N * C too large for one launch")
-    return _launch(maps, s_idx.to(torch.int32).contiguous(), ys, xs,
-                   packed=packed)
+    return _sample_on_card(maps, s_idx, ys, xs, packed)

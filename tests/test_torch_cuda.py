@@ -22,7 +22,8 @@ def cuda():
     return torch.device("cuda")
 
 
-def _problem(seed, S, H, W, K, N=16, C=36, rad=20.0, edge=False):
+def _problem(seed, S, H, W, K, N=16, C=36, rad=20.0, edge=False,
+             index=np.int32):
     rs = np.random.RandomState(seed)
     maps = rs.rand(S, H, W, C).astype(np.float32)
     pins = lambda n: rs.choice([0.0, 1.0, n - 2.0, n - 1.0], K)
@@ -30,8 +31,111 @@ def _problem(seed, S, H, W, K, N=16, C=36, rad=20.0, edge=False):
     cx = pins(W) if edge else rs.uniform(0, W - 1, K)
     ys = (cy[:, None] + rs.uniform(-rad, rad, (K, N))).astype(np.float32)
     xs = (cx[:, None] + rs.uniform(-rad, rad, (K, N))).astype(np.float32)
-    si = rs.randint(0, S, K).astype(np.int32)
+    si = rs.randint(0, S, K).astype(index)
     return [torch.from_numpy(a) for a in (maps, si, ys, xs)]
+
+
+def _counts():
+    return (ps.LAUNCHES, ps.GENERAL_LAUNCHES, ps.PACKED_LAUNCHES,
+            ps.PACKED_GENERAL_LAUNCHES)
+
+
+def _moved(before, packed, vector):
+    """The counts after one launch of the named kernel and variant."""
+    after = list(before)
+    after[2 * packed + (not vector)] += 1
+    return tuple(after)
+
+
+def _misaligned(maps):
+    """A contiguous view of ``maps``'s values whose base address is one
+    element past an aligned one (a sliced view of a flat buffer)."""
+    flat = torch.empty(maps.numel() + 1, dtype=maps.dtype,
+                       device=maps.device)
+    view = flat[1:].view(maps.shape)
+    view.copy_(maps)
+    return view
+
+
+# Variant cases: problem, dtype and layout, and the variant the wrapper
+# must take. Widths are multiples of 16, so pack_x takes K2.
+VARIANT_CASES = {
+    "c36_f32": (dict(S=5, H=960, W=1280, K=5120, index=np.int64), True),
+    "c36_bf16": (dict(S=5, H=960, W=1280, K=5120, index=np.int64), True),
+    "c37": (dict(S=3, H=64, W=96, K=40, C=37), False),
+    "misaligned": (dict(S=3, H=64, W=96, K=40), False),
+    "last_row_and_column": (dict(S=3, H=64, W=96, K=40), True),
+    "odd_and_even_x0": (dict(S=3, H=64, W=96, K=40), True),
+    "int32_idx": (dict(S=3, H=64, W=96, K=40, index=np.int32), True),
+    "int64_idx": (dict(S=3, H=64, W=96, K=40, index=np.int64), True),
+    "k13": (dict(S=5, H=30, W=48, K=13), True),
+}
+
+
+def _variant_problem(case, cuda):
+    kw, vector = VARIANT_CASES[case]
+    maps, si, ys, xs = (t.to(cuda) for t in _problem(11, **kw))
+    H, W = maps.shape[1:3]
+    if case == "c36_bf16":
+        maps = maps.bfloat16()
+    elif case == "misaligned":
+        maps = _misaligned(maps)
+    elif case == "last_row_and_column":
+        ys[:, :4] = H - 1.0                    # y exactly at the last row
+        xs[:, 4:8] = W - 1.0                   # x exactly at the last column
+        ys[:, 8], xs[:, 8] = H - 1.0, W - 1.0
+        xs[:, 9] = W - 1.5                     # even x0 = W - 2
+        xs[:, 10] = W - 2.5                    # odd x0 = W - 3
+    elif case == "odd_and_even_x0":
+        cols = torch.arange(16, device=cuda, dtype=torch.float32)
+        xs[:] = 20.0 + cols * 0.75             # odd and even x0, fx 0 to .75
+    return maps, si, ys, xs, vector
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("case", list(VARIANT_CASES))
+def test_variants_match_plain_on_card(cuda, case, packed):
+    """The wrapper takes the vector variant exactly where
+    ``vector_layout_ok`` holds, and the general variant elsewhere; each
+    variant that can read the layout equals the plain version of its kernel
+    (max abs error <= 1e-5). The index is read as it comes."""
+    maps, si, ys, xs, vector = _variant_problem(case, cuda)
+    assert ps.vector_layout_ok(maps) is vector
+    plain = (ps._sample_patches_packed_reference if packed
+             else ps._sample_patches_reference)
+    ref = plain(maps, si, ys, xs)
+    before = _counts()
+    copies = ps.INDEX_COPIES
+    out = ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=25.7,
+                                  pack_x=packed)
+    torch.cuda.synchronize()
+    assert _counts() == _moved(before, packed, vector)
+    assert ps.INDEX_COPIES == copies
+    assert (out - ref).abs().max().item() <= 1e-5
+    if vector:                                 # the general variant too
+        before = _counts()
+        out = ps._launch(maps, si, ys, xs, packed=packed, vector=False)
+        torch.cuda.synchronize()
+        assert _counts() == _moved(before, packed, False)
+        assert (out - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True], ids=["K1", "K2"])
+def test_nan_coordinates_vector_equals_general_on_card(cuda, packed):
+    """A NaN coordinate reads the first row or column in both variants
+    (the plain version has no answer for NaN)."""
+    maps, si, ys, xs = (t.to(cuda) for t in _problem(12, S=3, H=64, W=96,
+                                                     K=40))
+    ys[::3, 0] = float("nan")
+    xs[::2, 1] = float("nan")
+    ys[1::4, 2] = xs[1::4, 2] = float("nan")
+    new = ps._launch(maps, si, ys, xs, packed=packed, vector=True)
+    old = ps._launch(maps, si, ys, xs, packed=packed, vector=False)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(new).all())
+    assert (new - old).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda
@@ -148,12 +252,18 @@ def test_cuda_tensor_never_reaches_plain_version(cuda, monkeypatch):
 
     monkeypatch.setattr(ps, "_sample_patches_reference", refuse)
     monkeypatch.setattr(ps, "_sample_patches_packed_reference", refuse)
+    maps, si, ys, xs = (t.to(cuda) for t in _problem(6, S=3, H=64, W=80,
+                                                     K=7))
     for pack_x in (False, True):
-        out = ps.sample_field_patches(
-            *(t.to(cuda) for t in _problem(6, S=3, H=64, W=80, K=7)),
-            max_sample_radius=11.0, pack_x=pack_x)
-        torch.cuda.synchronize()
-        assert out.is_cuda
+        for layout in (maps, _misaligned(maps)):   # vector, general variant
+            before = _counts()
+            out = ps.sample_field_patches(layout, si, ys, xs,
+                                          max_sample_radius=11.0,
+                                          pack_x=pack_x)
+            torch.cuda.synchronize()
+            assert out.is_cuda
+            assert _counts() == _moved(before, pack_x,
+                                       layout.data_ptr() == maps.data_ptr())
 
 
 @pytest.mark.cuda

@@ -17,6 +17,7 @@ from sara_tpu.matching.brute_force import MatchParams as JaxMatchParams
 from sara_tpu_torch.convert import keypoints_from_numpy, params_from_jax
 from sara_tpu_torch.core import types as ttypes
 from sara_tpu_torch.features.api import SIFTParams, compute_sift_keypoints
+from sara_tpu_torch.image.filtering import gaussian_kernel_1d
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "sara_tpu_torch").rglob("*.py")) + [
@@ -53,6 +54,22 @@ def test_entry_point_without_device_raises_on_a_cpu_machine():
     with pytest.raises(RuntimeError):
         sara_tpu_torch.default_device()
     assert sara_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("make", [
+    lambda **kw: ttypes.Keypoints.empty(4, **kw).xy,
+    lambda **kw: ttypes.Matches.empty(3, **kw).i,
+    lambda **kw: gaussian_kernel_1d(1.3, **kw),
+], ids=["Keypoints.empty", "Matches.empty", "gaussian_kernel_1d"])
+def test_constructors_default_to_the_card(make):
+    """Without a device these build on the card, or raise without one; the
+    CPU only when asked."""
+    if torch.cuda.is_available():
+        assert make().is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert make(device="cpu").device == torch.device("cpu")
 
 
 def test_tf32_pinned_off():
@@ -101,8 +118,8 @@ def test_keypoints_from_numpy_and_container_ops():
     for a, b in zip(jc, tc):
         np.testing.assert_allclose(np.asarray(a, np.float32),
                                    b.numpy().astype(np.float32), rtol=1e-6)
-    e = ttypes.Keypoints.empty(4)
+    e = ttypes.Keypoints.empty(4, device="cpu")
     assert e.capacity == 4 and int(e.count()) == 0
-    assert ttypes.Matches.empty(3).capacity == 3
+    assert ttypes.Matches.empty(3, device="cpu").capacity == 3
     with pytest.raises(ValueError):
         keypoints_from_numpy(fields[:5], "cpu")

@@ -189,19 +189,94 @@ def test_wrapper_rejects(bad):
         maps = maps.half()
     else:
         maps, si, ys, xs = (t.to("meta") for t in (maps, si, ys, xs))
-    before = (ps.LAUNCHES, ps.PACKED_LAUNCHES)
+    before = ps.counts()
     with pytest.raises(ValueError):
         ps.sample_field_patches(maps, si, ys, xs, max_sample_radius=11.0,
                                 **kw)
-    assert (ps.LAUNCHES, ps.PACKED_LAUNCHES) == before
+    assert ps.counts() == before
 
 
 def test_cpu_path_counts_no_launch():
     rs = np.random.RandomState(0)
-    before = (ps.LAUNCHES, ps.PACKED_LAUNCHES)
+    before = ps.counts()
     for pack_x in (False, True):
         _port(*_random_problem(rs, K=3), pack_x=pack_x)
-    assert (ps.LAUNCHES, ps.PACKED_LAUNCHES) == before
+    assert ps.counts() == before
+
+
+def _at_offset(shape, dtype, offset):
+    """A contiguous (S, H, W, C) view starting ``offset`` elements into a
+    fresh (aligned) buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("C,dtype,offset,ok", [
+    (36, torch.float32, 0, True),      # the descriptor field
+    (36, torch.bfloat16, 0, True),
+    (4, torch.float32, 0, True),
+    (1024, torch.float32, 0, True),
+    (37, torch.float32, 0, False),     # C % 4 != 0
+    (34, torch.float32, 0, False),     # even, but not a multiple of 4
+    (2, torch.float32, 0, False),
+    (1028, torch.float32, 0, False),   # a team of C/4 lanes exceeds a block
+    (36, torch.float32, 1, False),     # base 4 B past a 16-B boundary
+    (36, torch.float32, 2, False),
+    (36, torch.float32, 4, True),      # 16 B: aligned again
+    (36, torch.bfloat16, 1, False),    # 2 B past an 8-B boundary
+    (36, torch.bfloat16, 4, True),     # 8 B
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_vector_layout_ok(C, dtype, offset, ok):
+    """The vector variant takes C % 4 == 0 (C <= 1024) at a base aligned
+    for 16-byte (float32) or 8-byte (bfloat16) loads; the rest goes to the
+    general variant."""
+    maps = _at_offset((2, 4, 8, C), dtype, offset)
+    assert maps.is_contiguous()
+    assert ps.vector_layout_ok(maps) is ok
+
+
+@pytest.mark.parametrize("index,copied", [
+    ("int64", False), ("int32", False), ("int16", True),
+    ("int64_strided", True)])
+@pytest.mark.parametrize("pack_x", [False, True])
+def test_card_side_reads_the_index_in_place(monkeypatch, index, copied,
+                                            pack_x):
+    """The wrapper's card side hands int32 and int64 indices to the kernel
+    as they are (the frontend's int64 costs no conversion launch); it copies
+    only other integer types or a strided index, and counts the copy."""
+    rs = np.random.RandomState(5)
+    maps, si, ys, xs = (torch.from_numpy(a) for a in
+                        _random_problem(rs, K=6))
+    dtype = getattr(torch, index.split("_")[0])
+    si = si.to(dtype)
+    if index.endswith("strided"):
+        si = torch.stack([si, si], 1)[:, 0]
+    seen = []
+    monkeypatch.setattr(ps, "_launch", lambda m, s, y, x, packed, vector:
+                        seen.append((s, packed, vector)))
+    copies = ps.INDEX_COPIES
+    ps._sample_on_card(maps, si, ys, xs, pack_x)
+    (s, packed, vector), = seen
+    assert (packed, vector) == (pack_x, True)
+    assert s.is_contiguous() and s.dtype in (torch.int32, torch.int64)
+    assert (s.data_ptr() != si.data_ptr()) is copied
+    assert s.dtype == (torch.int32 if copied else dtype)
+    assert ps.INDEX_COPIES == copies + copied
+    assert torch.equal(s.long(), si.long())
+
+
+def test_card_side_takes_the_general_variant_where_vectors_cannot_read(
+        monkeypatch):
+    seen = []
+    rs = np.random.RandomState(6)
+    _, si, ys, xs = (torch.from_numpy(a) for a in _random_problem(rs, K=4))
+    monkeypatch.setattr(ps, "_launch", lambda m, s, y, x, packed, vector:
+                        seen.append(vector))
+    for maps in (_at_offset((3, 64, 80, 36), torch.float32, 1),
+                 _at_offset((3, 64, 80, 37), torch.float32, 0),
+                 _at_offset((3, 64, 80, 36), torch.float32, 0)):
+        ps._sample_on_card(maps, si, ys, xs, False)
+    assert seen == [False, False, True]
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
@@ -213,6 +288,21 @@ def test_failed_build_raises(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="patch_sampler.cu"):
         _build.build("patch_sampler")
     assert not list(tmp_path.glob("*.so"))
+
+
+@pytest.mark.parametrize("bad", ["strided_maps", "too_many_pixels"])
+def test_card_side_rejects(bad):
+    rs = np.random.RandomState(0)
+    maps, si, ys, xs = (torch.from_numpy(a) for a in
+                        _random_problem(rs, K=4))
+    if bad == "strided_maps":
+        maps = torch.zeros(3, 64, 80, 37)[..., 1:]
+    else:
+        maps = torch.empty((2 ** 16, 2 ** 8, 2 ** 7, 36), device="meta")
+    before = ps.counts()
+    with pytest.raises(ValueError):
+        ps._sample_on_card(maps, si, ys, xs, False)
+    assert ps.counts() == before
 
 
 def test_library_name_tracks_source_and_flags():
