@@ -42,7 +42,20 @@ raises, so the script exits nonzero and prints no result line):
    scene of 8192 slots (4096 valid correspondences, 30% outliers); check
    the recovered geometry, time each estimator and profile one relative
    pose;
-8. print the kernels line, the card line, then the result line.
+8. phase "vo" (Slice C): 30 renders of ``tests/render3d.py``'s room at
+   480x640 on ``scripts/eval_vo.py``'s loop and configuration through
+   ``OdometryPipeline`` (frames 0-11 by ``process_frame``, 12-29 by
+   ``process_frames``), the sampler counts set to 0 just before and read
+   just after: at least 29 accepted, ATE <= 0.10, > 500 map points, K1's
+   vector variant on every frame, the native union-find; records ms per
+   frame and per stage, BA ms per call, host syncs and a profile;
+9. phase "ba": ``scripts/bench_ba.py``'s "large" problem (C=256,
+   P=100,000, O=800,000, float32) through ``bundle_adjust`` (dense Schur),
+   a ``DenseSchurSession`` solved twice and ``bundle_adjust_cg``, 10 LM
+   iterations each: every cost falls, dense and CG within 1%, the session
+   continues; records ms per LM iteration, syncs, peak memory, a profile;
+10. print the kernels line, the card line, then the result line.
+Each phase logs its seconds.
 """
 
 from __future__ import annotations
@@ -709,6 +722,312 @@ def phase_two_view(frames, card: str, device="cuda", num_samples: int = 1000,
     return out
 
 
+VO_HW = (480, 640)
+VO_FRAMES = 30          # 12 through process_frame, 18 through process_frames
+VO_WARM = 12
+VO_LOOP = 100           # the circular loop's length (scripts/eval_vo.py)
+# Pipeline stages timed one by one on the VO path (the rest of a frame is
+# matching, tracks, triangulation and host bookkeeping).
+VO_STAGES = ("_detect", "_relative_pose", "_pnp", "_bundle_adjust")
+
+
+def load_render3d():
+    """``tests/render3d.py`` (numpy + scipy) from the checkout, by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "render3d.py"
+    spec = importlib.util.spec_from_file_location("render3d", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def vo_frames(n: int, hw=VO_HW, first: int = 0):
+    """Frames ``first`` .. ``first + n - 1`` of the circular loop of
+    scripts/eval_vo.py (100 poses, a = 2 pi i / 100, gentle yaw) through
+    ``make_room(seed=1)``: (K, images, camera centres)."""
+    r3 = load_render3d()
+    h, w = hw
+    K = np.array([[0.94 * w, 0, w / 2], [0, 0.94 * w, h / 2], [0, 0, 1.0]])
+    planes = r3.make_room(seed=1)
+    imgs, centers = [], []
+    for i in range(first, first + n):
+        a = 2 * np.pi * i / VO_LOOP
+        c = np.array([0.5 + 1.6 * np.sin(a), 0.0, 4.0 + 1.6 * (1 - np.cos(a))])
+        yaw = 0.25 * np.sin(a)
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]])
+        with np.errstate(invalid="ignore", divide="ignore"):
+            imgs.append(np.asarray(r3.render(planes, K, R, -R @ c, hw=hw),
+                                   np.float32))
+        centers.append(c)
+    return K, imgs, np.asarray(centers)
+
+
+def vo_config():
+    """scripts/eval_vo.py's configuration with the kernel sampler."""
+    from sara_tpu_torch.sfm import OdometryConfig
+
+    return OdometryConfig(
+        rel_pose_samples=300, pnp_samples=300, rel_pose_min_inliers=40,
+        pnp_min_inliers=15, ba_window=8, full_ba_every=8, frontend_batch=4,
+        sift=dataclasses.replace(OdometryConfig().sift,
+                                 desc_sampler="kernel"))
+
+
+def phase_vo(ps, card: str, device="cuda", n_frames: int = VO_FRAMES,
+             warm: int = VO_WARM, hw=VO_HW) -> dict:
+    """The VO path at full width: ``n_frames`` renders of the room through
+    ``OdometryPipeline``, frames 0 .. warm - 1 by ``process_frame`` and the
+    rest by ``process_frames`` (window 4). The sampler counts are set to 0
+    just before and read just after. Gates: all frames but one accepted,
+    ATE <= 0.10 after similarity alignment, > 500 map points, the native
+    union-find, and on the card K1's vector variant on every frame with no
+    index copy. Records steady ms per frame, the steady frames' time per
+    stage (detection, relative pose, PnP, BA, the rest) and BA ms per call.
+    Then two more frames of the loop, with the stage timers removed: one
+    for the host syncs, one profiled. Returns the measurements."""
+    from sara_tpu_torch.features.api import compute_sift_keypoints
+    from sara_tpu_torch.sfm import OdometryPipeline
+    from sara_tpu_torch.sfm import disjoint_sets
+    from sara_tpu_torch.utils import ate_rmse
+
+    dev = torch.device(device)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    K, imgs, centers = vo_frames(n_frames + 2, hw)
+    log(f"vo: rendered {len(imgs)} frames {hw} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    backend = disjoint_sets.backend()
+    check(backend == "native", f"vo: union-find backend {backend}")
+    cfg = vo_config()
+
+    # K1 launches of one frame's detection (one per octave).
+    ps.reset_counts()
+    compute_sift_keypoints(imgs[0], cfg.sift, device=dev)
+    sync()
+    per_frame = ps.counts()["K1"]
+
+    pipe = OdometryPipeline(K, cfg, device=dev)
+    # Host clock around each stage, ending in a synchronize (the stages'
+    # own syncs aside, the pipeline does not overlap them).
+    stage_ms = {name: [] for name in VO_STAGES}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            result = fn(*a, **kw)
+            sync()
+            stage_ms[name].append((time.perf_counter() - t) * 1e3)
+            return result
+        return run
+
+    for name in VO_STAGES:
+        setattr(pipe, name, timed(name, getattr(pipe, name)))
+    ps.reset_counts()
+    t_start = time.perf_counter()
+    ok = [bool(pipe.process_frame(imgs[f], f)) for f in range(warm)]
+    sync()
+    t_warm = time.perf_counter()
+    n_warm = {name: len(v) for name, v in stage_ms.items()}
+    ok += [bool(o) for o in pipe.process_frames(
+        imgs[warm:n_frames], list(range(warm, n_frames)))]
+    sync()
+    t_end = time.perf_counter()
+    counts = ps.counts()
+    for name in VO_STAGES:
+        delattr(pipe, name)
+
+    accepted = int(sum(ok))
+    ate = ate_rmse(pipe.trajectory(), centers[:n_frames][np.flatnonzero(ok)])
+    n_steady = max(n_frames - warm, 1)
+    steady = (t_end - t_warm) * 1e3 / n_steady
+    stages = {name.strip("_"): sum(v[n_warm[name]:]) / n_steady
+              for name, v in stage_ms.items()}
+    stages["rest"] = steady - sum(stages.values())
+    ba_ms = stage_ms["_bundle_adjust"]
+    out = {"frames": n_frames, "accepted": accepted, "ate": ate,
+           "path_length": float(np.linalg.norm(
+               np.diff(centers[:n_frames], axis=0), axis=1).sum()),
+           "map_points": pipe.point_cloud.num_points,
+           "warm_ms_per_frame": (t_warm - t_start) * 1e3 / warm,
+           "steady_ms_per_frame": steady,
+           "steady_stage_ms_per_frame": stages,
+           "ba_calls": len(ba_ms),
+           "ba_ms_median": float(np.median(ba_ms)) if ba_ms else None,
+           "k1_per_frame": per_frame, "sampler_counts": counts,
+           "union_find": backend}
+    log("vo", json.dumps(out), f"({card})")
+    check(accepted >= n_frames - 1, f"vo: {accepted}/{n_frames} accepted")
+    check(ate <= 0.10, f"vo: ATE {ate}")
+    check(out["map_points"] > 500, f"vo: {out['map_points']} map points")
+    if dev.type == "cuda":
+        check(per_frame >= 1 and counts == {
+            "K1": n_frames * per_frame, "K1 general": 0, "K2": 0,
+            "K2 general": 0, "index copies": 0},
+            f"vo: expected {n_frames} x {per_frame} launches of K1's vector "
+            f"variant and nothing else, got {counts}")
+        out["syncs"] = count_syncs(
+            lambda: pipe.process_frame(imgs[n_frames], n_frames))
+        log("vo: host syncs in one steady frame", json.dumps(out["syncs"]))
+        profile_frame(lambda: pipe.process_frame(imgs[n_frames + 1],
+                                                 n_frames + 1),
+                      steady, top=15, what="vo frame")
+    return out
+
+
+BA_SIZE = dict(C=256, P=100_000, O=800_000)     # scripts/bench_ba.py "large"
+
+
+def make_ba_problem(C, P, O, seed=0, device="cuda", dtype=torch.float32):
+    """scripts/bench_ba.py::make_problem in numpy: P points in front of C
+    cameras along the x axis, O random observations with 0.5 px noise,
+    poses and points perturbed; camera 0 fixed. A port BAProblem on
+    ``device``."""
+    from sara_tpu_torch.ba import BAProblem
+    from sara_tpu_torch.core import lie
+
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(-10, 10, (P, 3)) + np.array([0, 0, 30.0])
+    intr = np.array([800.0, 800.0, 512.0, 384.0])
+    poses = np.zeros((C, 6))
+    poses[:, 3] = np.linspace(0, 10.0, C)
+    poses[:, :3] = rs.normal(scale=0.01, size=(C, 3))
+    cam_idx = rs.randint(0, C, O).astype(np.int32)
+    pt_idx = rs.randint(0, P, O).astype(np.int32)
+    Rm = lie.so3_exp(torch.from_numpy(poses[:, :3])).numpy()
+    Xc = np.einsum("oij,oj->oi", Rm[cam_idx], X[pt_idx]) + poses[cam_idx, 3:]
+    z = np.clip(Xc[:, 2], 1.0, None)
+    uv = np.stack([intr[0] * Xc[:, 0] / z + intr[2],
+                   intr[1] * Xc[:, 1] / z + intr[3]], axis=1)
+    uv += rs.normal(scale=0.5, size=uv.shape)
+    pose_fixed = np.zeros(C, bool)
+    pose_fixed[0] = True
+    f = lambda a: torch.as_tensor(a, dtype=dtype).to(device)  # noqa: E731
+    t = lambda a: torch.as_tensor(a).to(device)               # noqa: E731
+    return BAProblem(
+        poses=f(poses + np.concatenate(
+            [np.zeros((1, 6)), rs.normal(scale=2e-3, size=(C - 1, 6))])),
+        points=f(X + rs.normal(scale=5e-2, size=X.shape)),
+        intrinsics=f(intr), cam_idx=t(cam_idx), pt_idx=t(pt_idx), uv=f(uv),
+        obs_mask=t(np.ones(O, bool)), pose_fixed=t(pose_fixed),
+        point_fixed=t(np.zeros(P, bool)))
+
+
+def events_ms(fn, device) -> tuple:
+    """(result, ms) of one call of ``fn``, by CUDA events after a
+    synchronize (host clock on the CPU)."""
+    if device.type != "cuda":
+        t = time.perf_counter()
+        return fn(), (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_ba(card: str, device="cuda", size=None, iters: int = 10) -> dict:
+    """Bundle adjustment at realistic size (bench_ba.py's "large" problem,
+    float32): ``iters`` LM iterations each through ``bundle_adjust`` (the
+    dense-Schur strata path), ``DenseSchurSession.solve`` (packed once,
+    solved twice) and ``bundle_adjust_cg`` (15 CG iterations). Gates: every
+    final cost below its initial cost, dense and CG within 1%, the
+    session's second solve continuing from the first. Records ms per LM
+    iteration (CUDA events), host syncs per ``bundle_adjust`` call, peak
+    device memory, and a profile of one dense call."""
+    from sara_tpu_torch.ba import (BAOptions, DenseSchurSession,
+                                   bundle_adjust, bundle_adjust_cg)
+    from sara_tpu_torch.ba import dense_schur
+
+    dev = torch.device(device)
+    size = size or BA_SIZE
+    t0 = time.perf_counter()
+    prob = make_ba_problem(**size, device=dev)
+    log(f"ba: problem {json.dumps(size)} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    opts = BAOptions(max_iters=iters)
+    cg_opts = BAOptions(max_iters=iters, cg_iters=15, solver="cg")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"size": size, "iters": iters}
+
+    strata, ids, stats = dense_schur.pack_pt_major_strata(
+        prob, chunk=opts.dense_chunk)
+    check(dense_schur.dense_eligible(stats, opts),
+          f"ba: the dense path declines this problem ({stats})")
+    # Operations of the S contraction in one LM iteration: per chunk of Q
+    # points, the (6C x 3Q) @ (3Q x 6C) product of H and D.
+    n_chunks = [ptm.cam_idx.shape[0] // q
+                for ptm, q in zip(strata, stats["chunks"])]
+    out["strata"] = {"sps": stats["sps"], "chunks": stats["chunks"],
+                     "n_chunks": n_chunks,
+                     "inflation": stats["inflation"],
+                     "s_contraction_flop_per_iter": sum(
+                         2 * (6 * size["C"]) ** 2 * 3 * q * n
+                         for q, n in zip(stats["chunks"], n_chunks))}
+    # Warm-up calls (allocator, cuBLAS / cuSOLVER handles), not timed.
+    bundle_adjust(prob, BAOptions(max_iters=1))
+    bundle_adjust_cg(prob, BAOptions(max_iters=1, cg_iters=15, solver="cg"))
+
+    (res, info), ms = events_ms(lambda: bundle_adjust(prob, opts), dev)
+    (_, _, info_lm), lm_ms = events_ms(
+        lambda: dense_schur.dense_schur_bundle_adjust_strata(
+            tuple(strata), opts, tuple(stats["chunks"])), dev)
+    out["dense"] = {"initial_cost": float(info["initial_cost"]),
+                    "final_cost": float(info["final_cost"]),
+                    "call_ms": ms, "lm_loop_ms": lm_ms,
+                    "ms_per_lm_iter": lm_ms / iters}
+    sess = DenseSchurSession(prob, opts)
+    (_, _, s1), ms1 = events_ms(sess.solve, dev)
+    (_, _, s2), ms2 = events_ms(sess.solve, dev)
+    out["session"] = {"first": [float(s1["initial_cost"]),
+                                float(s1["final_cost"])],
+                      "second": [float(s2["initial_cost"]),
+                                 float(s2["final_cost"])],
+                      "ms_per_lm_iter": [ms1 / iters, ms2 / iters]}
+    (cg_res, cg_info), cg_ms = events_ms(
+        lambda: bundle_adjust_cg(prob, cg_opts), dev)
+    out["cg"] = {"initial_cost": float(cg_info["initial_cost"]),
+                 "final_cost": float(cg_info["final_cost"]),
+                 "call_ms": cg_ms, "ms_per_lm_iter": cg_ms / iters}
+    if dev.type == "cuda":
+        out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["syncs_bundle_adjust"] = count_syncs(
+            lambda: bundle_adjust(prob, opts))
+        out["syncs_cg"] = count_syncs(lambda: bundle_adjust_cg(prob,
+                                                                cg_opts))
+    log("ba", json.dumps(out), f"({card})")
+    for name in ("dense", "cg"):
+        check(out[name]["final_cost"] < out[name]["initial_cost"],
+              f"ba: {name} did not lower the cost: {out[name]}")
+    check(s1["final_cost"] < s1["initial_cost"]
+          and s2["final_cost"] <= s1["final_cost"],
+          f"ba: session costs {out['session']}")
+    check(abs(float(s2["initial_cost"]) - float(s1["final_cost"]))
+          <= 1e-6 * float(s1["final_cost"]),
+          "ba: the session's second solve did not start where the first "
+          "ended")
+    gap = (abs(out["dense"]["final_cost"] - out["cg"]["final_cost"])
+           / out["cg"]["final_cost"])
+    out["dense_vs_cg"] = gap
+    check(gap <= 0.01, f"ba: dense and CG final costs differ by {gap:.4f}")
+    for name, p in (("dense", res), ("cg", cg_res)):
+        check(bool(torch.isfinite(p.poses).all()
+                   and torch.isfinite(p.points).all()),
+              f"ba: non-finite {name} result")
+    if dev.type == "cuda":
+        profile_frame(lambda: bundle_adjust(prob, opts), ms, top=15,
+                      what="bundle_adjust (dense)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -726,15 +1045,22 @@ def main() -> int:
     for name, text in _build.BUILD_LOGS.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
 
-    worst = phase_kernels_vs_plain(ps)
-    recorded, launches, frames = phase_main_path(ps, card)
-    k2_launches, k1_on_k2_path, k2_path_err = phase_packed_path(ps, recorded)
-    rows = phase_timing(ps, recorded)
-    rows_k2 = phase_timing(ps, recorded, packed=True)
-    compare_k1_k2(ps, recorded)
-    t0 = time.perf_counter()
-    phase_two_view(frames, card)
-    log(f"two-view phase: {time.perf_counter() - t0:.2f} s")
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        log(f"{name} phase: {time.perf_counter() - t:.2f} s")
+        return result
+
+    worst = timed("kernels vs plain", phase_kernels_vs_plain, ps)
+    recorded, launches, frames = timed("frame", phase_main_path, ps, card)
+    k2_launches, k1_on_k2_path, k2_path_err = timed(
+        "pack_x", phase_packed_path, ps, recorded)
+    rows = timed("K1 timing", phase_timing, ps, recorded)
+    rows_k2 = timed("K2 timing", phase_timing, ps, recorded, packed=True)
+    timed("K1 vs K2", compare_k1_k2, ps, recorded)
+    timed("two-view", phase_two_view, frames, card)
+    vo = timed("vo", phase_vo, ps, card)
+    timed("ba", phase_ba, card)
     check(not any(m.split(".")[0] in ("jax", "sara_tpu")
                   for m in sys.modules), "JAX or sara_tpu was imported")
 
@@ -765,10 +1091,11 @@ def main() -> int:
 
     kernels = [
         entry("patch_sampler", "K1", "sara_tpu/ops/patch_sampler.py:170",
-              rows, launches + k1_on_k2_path, 0.0,
-              "frame: the 6 launches of one 480x640 frame, summed",
+              rows, launches + k1_on_k2_path + vo["sampler_counts"]["K1"],
+              0.0, "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
-                                "pack_x": k1_on_k2_path}),
+                                "pack_x": k1_on_k2_path,
+                                "vo": vo["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

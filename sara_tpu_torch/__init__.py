@@ -7,16 +7,25 @@ Every Pallas kernel of the reference becomes a kernel written by hand for
 Hopper (``ops/csrc``), with a plain PyTorch version beside it.
 
 Ported so far: the SIFT frontend and the brute-force matcher (Slice A),
-and two-view geometry (Slice B).
+two-view geometry (Slice B), and monocular visual odometry with bundle
+adjustment (Slice C).
 
-core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3)
-image     separable filtering, transforms, gradients, Gaussian/DoG pyramids
+core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3),
+          camera models (pinhole, Brown-Conrady, Kannala-Brandt, omni)
+image     separable filtering, transforms and dense warps, gradients,
+          Gaussian/DoG pyramids, color conversion
 features  DoG detection, orientation, field SIFT descriptors, the pipeline
 matching  brute-force GEMM matcher (ratio test + mutual check)
 mvg       minimal solvers (4/5/7/8-point, P3P), two-view geometry
 ransac    batched RANSAC, ORSA and the H / F / E + pose / PnP estimators
+ba        LM bundle adjustment: dense-Schur and matrix-free Schur + PCG
+sfm       union-find (native C++), feature tracks, pose graph, point cloud,
+          the odometry pipeline
+utils     trajectory metrics (Umeyama alignment, ATE), host transfers
+viz       the self-contained HTML point-cloud viewer
 ops       top-k, small-matrix algebra and the CUDA patch-sampler kernels
-convert   carries parameters and keypoints over from the JAX package
+convert   carries parameters, keypoints and BA problems over from the JAX
+          package
 
 Entry points run on the card: ``device=None`` means CUDA, and without a
 card they raise instead of falling back to the CPU. Pass ``device="cpu"``

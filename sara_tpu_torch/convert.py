@@ -1,9 +1,11 @@
 """Carry state over from the JAX package.
 
-The SIFT frontend and matcher have no learned weights; what a user carries
-over from ``sara_tpu`` is its static configuration and its keypoint sets.
-Both converters are duck-typed (``dataclasses.asdict`` and the class name;
-numpy arrays), so this module imports nothing of JAX or ``sara_tpu``.
+The port has no learned weights; what a user carries over from
+``sara_tpu`` is its static configuration (SIFT, matcher, bundle adjustment
+and odometry settings), its keypoint sets and its bundle-adjustment
+problems. The converters are duck-typed (``dataclasses.asdict`` or
+``_asdict`` and the class name; numpy arrays), so this module imports
+nothing of JAX or ``sara_tpu``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from sara_tpu_torch import resolve_device
+from sara_tpu_torch.ba.core import BAOptions, BAProblem
 from sara_tpu_torch.core.types import Keypoints
 from sara_tpu_torch.features.api import SIFTParams
 from sara_tpu_torch.features.dog import DoGParams
@@ -25,12 +28,29 @@ _SAMPLER = {"pallas": "kernel", "kernel": "kernel", "gather": "gather",
             "auto": "auto"}
 
 
+def _sift_from_fields(fields: dict) -> SIFTParams:
+    fields = dict(fields)
+    fields["pyramid"] = PyramidParams(**fields["pyramid"])
+    fields["dog"] = DoGParams(**fields["dog"])
+    fields["desc_sampler"] = _SAMPLER[fields["desc_sampler"]]
+    return SIFTParams(**fields)
+
+
 def params_from_jax(obj):
     """The port's twin of a JAX ``SIFTParams``, ``DoGParams``,
-    ``PyramidParams`` or ``MatchParams`` (same field values;
+    ``PyramidParams``, ``MatchParams``, ``BAOptions`` or
+    ``OdometryConfig`` (same field values, nested ones included;
     ``desc_sampler="pallas"`` becomes ``"kernel"``)."""
+    from sara_tpu_torch.sfm.odometry import OdometryConfig
+
     name = type(obj).__name__
+    if name == "BAOptions":
+        return BAOptions(**obj._asdict())
     fields = dataclasses.asdict(obj)
+    if name == "OdometryConfig":
+        fields["sift"] = _sift_from_fields(fields["sift"])
+        fields["ba_options"] = params_from_jax(fields["ba_options"])
+        return OdometryConfig(**fields)
     if name == "PyramidParams":
         return PyramidParams(**fields)
     if name == "DoGParams":
@@ -38,10 +58,7 @@ def params_from_jax(obj):
     if name == "MatchParams":
         return MatchParams(**fields)
     if name == "SIFTParams":
-        fields["pyramid"] = PyramidParams(**fields["pyramid"])
-        fields["dog"] = DoGParams(**fields["dog"])
-        fields["desc_sampler"] = _SAMPLER[fields["desc_sampler"]]
-        return SIFTParams(**fields)
+        return _sift_from_fields(fields)
     raise TypeError(f"no port twin for {name}")
 
 
@@ -59,3 +76,21 @@ def keypoints_from_numpy(fields, device: str | torch.device | None = None
     return Keypoints(*(torch.as_tensor(a.astype(np.float32)).to(dev)
                        for a in floats),
                      mask=torch.as_tensor(mask.astype(bool)).to(dev))
+
+
+def ba_problem_from_numpy(fields, device: str | torch.device | None = None
+                          ) -> BAProblem:
+    """The port's BAProblem from a JAX ``BAProblem`` or any sequence of its
+    fields (poses, points, intrinsics, cam_idx, pt_idx, uv, obs_mask,
+    pose_fixed, point_fixed[, intr_free]) as arrays, on ``device`` (None =
+    the CUDA device). Every array keeps its dtype; a missing or None
+    ``intr_free`` stays None."""
+    dev = resolve_device(device)
+    arrays = list(fields)
+    if len(arrays) not in (len(BAProblem._fields) - 1,
+                           len(BAProblem._fields)):
+        raise ValueError(f"expected {len(BAProblem._fields)} fields, got "
+                         f"{len(arrays)}")
+    return BAProblem(*(None if a is None
+                       else torch.as_tensor(np.array(a)).to(dev)
+                       for a in arrays))

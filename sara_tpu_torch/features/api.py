@@ -127,7 +127,7 @@ def compute_sift_keypoints(image, params: SIFTParams = SIFTParams(),
         out = _process_octave(gauss, dog, oct_params, gp.sigmas)
         scale_factor = gp.octave_scales[oct_idx]
         sigma = params.pyramid.sigma_initial * torch.pow(
-            torch.tensor(params.pyramid.k, dtype=torch.float32, device=dev),
+            torch.full((), params.pyramid.k, dtype=torch.float32, device=dev),
             out["s"])
         chunks.append(Keypoints(
             xy=torch.stack([out["x"], out["y"]], dim=-1) * scale_factor,

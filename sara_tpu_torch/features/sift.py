@@ -11,10 +11,12 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from sara_tpu_torch.features.orientation import NUM_BINS
 from sara_tpu_torch.ops import patch_sampler
+from sara_tpu_torch.utils.host import put
 
 N_SPATIAL = 4     # spatial bins per axis
 N_ORI = 8         # orientation bins
@@ -68,7 +70,7 @@ def sift_descriptors(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
     S, H, W = gx_stack.shape
     dev = gx_stack.device
     s_idx = torch.clamp(torch.round(s).long(), 0, S - 1)
-    sig_table = torch.tensor(sigmas, dtype=torch.float32, device=dev)
+    sig_table = put(np.asarray(sigmas, np.float32), dev)
     l = BIN_SCALE_UNIT * sig_table[s_idx]
 
     # Sample positions in the canonical keypoint frame.
@@ -160,7 +162,7 @@ def sift_descriptors_field(maps: torch.Tensor, x, y, s, theta, sigmas,
     dev = maps.device
     K = x.shape[0]
     s_idx = torch.clamp(torch.round(s).long(), 0, S - 1)
-    sig_table = torch.tensor(sigmas, dtype=torch.float32, device=dev)
+    sig_table = put(np.asarray(sigmas, np.float32), dev)
     l = BIN_SCALE_UNIT * sig_table[s_idx]                 # (K,)
 
     # Rotated 4x4 bin-centre grid in image coords.

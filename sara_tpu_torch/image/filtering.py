@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from sara_tpu_torch import resolve_device
+from sara_tpu_torch.utils.host import put
 
 
 def gaussian_kernel_1d(sigma: float, truncate: float = 4.0,
@@ -49,7 +50,8 @@ def band_matrix(taps, n_in: int, stride: int) -> np.ndarray:
 
 def _taps(k, like: torch.Tensor) -> torch.Tensor:
     if not isinstance(k, torch.Tensor):
-        k = torch.from_numpy(np.asarray(k, np.float64))
+        # Host taps go over without waiting for the device's queue.
+        k = put(np.asarray(k, np.float64), like.device)
     return k.to(dtype=like.dtype, device=like.device)
 
 

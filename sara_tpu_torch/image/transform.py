@@ -58,3 +58,34 @@ def upscale2(image: torch.Tensor) -> torch.Tensor:
     """Bilinear x2 upsample (the first_octave = -1 enlargement)."""
     H, W = image.shape[0], image.shape[1]
     return resize_bilinear(image, 2 * H, 2 * W)
+
+
+def warp_bilinear(image: torch.Tensor, map_x: torch.Tensor,
+                  map_y: torch.Tensor, fill_value: float = 0.0
+                  ) -> torch.Tensor:
+    """Dense warp: out[i, j] = image(map_y[i,j], map_x[i,j]), bilinear.
+
+    Out-of-bounds samples get ``fill_value``. This is the undistortion warp
+    (reference: SfM/Odometry/ImageDistortionCorrector.hpp:46-59).
+    """
+    H, W = image.shape[0], image.shape[1]
+    inside = (map_x >= 0) & (map_x <= W - 1) & (map_y >= 0) & (map_y <= H - 1)
+    out = bilinear_sample(image, map_x, map_y)
+    if image.dim() == 3:
+        inside = inside[..., None]
+    return torch.where(inside, out, torch.as_tensor(fill_value, dtype=out.dtype,
+                                                    device=out.device))
+
+
+def warp_homography(image: torch.Tensor, H_inv: torch.Tensor, out_h: int,
+                    out_w: int, fill_value: float = 0.0) -> torch.Tensor:
+    """Warp by a homography: out pixel p gets image(H_inv @ p)."""
+    dev = image.device
+    u = torch.arange(out_w, dtype=torch.float32, device=dev)
+    v = torch.arange(out_h, dtype=torch.float32, device=dev)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    p = torch.stack([uu, vv, torch.ones_like(uu)], dim=-1)   # (H, W, 3)
+    q = p @ torch.as_tensor(H_inv, dtype=torch.float32, device=dev).T
+    mx = q[..., 0] / q[..., 2]
+    my = q[..., 1] / q[..., 2]
+    return warp_bilinear(image, mx, my, fill_value)

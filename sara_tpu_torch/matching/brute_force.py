@@ -45,7 +45,9 @@ def _top2_min(d2: torch.Tensor):
     j = torch.argmin(d2, dim=1)
     d1 = torch.gather(d2, 1, j[:, None])[:, 0]
     rows = torch.arange(d2.shape[0], device=d2.device)
-    masked = d2.index_put((rows, j), d2.new_tensor(float("inf")))
+    masked = d2.index_put((rows, j), torch.full((), float("inf"),
+                                                dtype=d2.dtype,
+                                                device=d2.device))
     d2nd = masked.amin(dim=1)
     return d1, d2nd, j
 

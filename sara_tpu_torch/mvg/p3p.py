@@ -104,6 +104,12 @@ def p3p_lambda_twist(Xw: torch.Tensor, rays: torch.Tensor):
     c1 = 0.5 * (d1 - dm1) - c3
     gamma = roots_cubic_single_real(c3, c2, c1, c0)
     D0 = D1 + s(gamma) * D2
+    # A sample whose quadric is not finite (NaN or overflowing data): the
+    # reference's eigh returns NaN there and the sample comes out invalid,
+    # while LAPACK's and cuSOLVER's eigh raise. Solve a zero matrix in its
+    # place and mark the sample invalid.
+    finite = torch.isfinite(D0).flatten(-2).all(-1)
+    D0 = torch.where(s(finite), D0, torch.zeros_like(D0))
 
     # Split the rank-2 indefinite quadric into two planes via eigh.
     evals, evecs = torch.linalg.eigh(D0)                    # ascending
@@ -153,4 +159,4 @@ def p3p_lambda_twist(Xw: torch.Tensor, rays: torch.Tensor):
     # Verify reprojection of the minimal sample itself (guards eigh noise).
     Yr = Xw4 @ R.transpose(-1, -2) + t[..., None, :]        # (..., 4, 3, 3)
     align = torch.sum(_normalized(Yr) * rays[..., None, :, :], dim=-1)
-    return R, t, good & torch.all(align > 0.9999, dim=-1)
+    return R, t, good & torch.all(align > 0.9999, dim=-1) & finite[..., None]

@@ -11,6 +11,8 @@ A library's file name carries a hash of its source and flags, so an edited
 source is rebuilt and an unchanged one is reused. Nothing is compiled when a
 module is imported: the first launch of a kernel builds it, or a caller
 builds several at once with :func:`build`, one ``nvcc`` process each.
+:func:`build_host` compiles a host C++ library (the union-find of
+``sfm/csrc``) into the same directory with the host compiler.
 """
 
 from __future__ import annotations
@@ -51,10 +53,14 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _hashed_path(src: Path, flags) -> Path:
+    """``_build/<stem>-<hash of the source and flags>.so``."""
+    digest = hashlib.sha1(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:12]}.so"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+    return _hashed_path(CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
 def build(*names: str) -> dict[str, Path]:
@@ -95,3 +101,33 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build(name)[name]))
         _LIBS[name] = lib
     return lib
+
+
+# Host C++ libraries (plain C interface, loaded with ctypes) are built the
+# same way with the host compiler: ``$CXX`` if set, else ``c++`` or ``g++``.
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
+
+
+def build_host(src: Path) -> Path:
+    """Compile the host C++ source ``src`` into ``_build/`` unless it is
+    built already; returns the library path. Raises RuntimeError, with the
+    compiler's output, if there is no compiler or the compilation fails."""
+    src = Path(src)
+    out = _hashed_path(src, CXX_FLAGS)
+    if out.exists():
+        return out
+    cxx = (os.environ.get("CXX") or shutil.which("c++")
+           or shutil.which("g++"))
+    if not cxx:
+        raise RuntimeError(f"no host C++ compiler to build {src.name}")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(src)],
+                          capture_output=True, text=True)
+    BUILD_LOGS[src.stem] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"build of {src.name} failed ({cxx} exit "
+                           f"{proc.returncode}):\n{BUILD_LOGS[src.stem]}")
+    os.replace(tmp, out)
+    return out

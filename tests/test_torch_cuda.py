@@ -1,5 +1,6 @@
-"""Card-only tests of the port's CUDA kernels and of Slice B's estimators
-on the card (marker ``cuda``).
+"""Card-only tests of the port's CUDA kernels, of Slice B's estimators and
+of Slice C's bundle adjustment and odometry core on the card (marker
+``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -282,3 +283,115 @@ def test_field_descriptors_kernel_equals_gather_on_card(cuda):
     b = sift.sift_descriptors_field(maps, x, y, s, th, sigmas,
                                     bilinear=True, sampler="gather")
     assert (a - b).abs().max().item() <= 1e-5
+
+
+def _ba_problem(device, seed=0, C=6, P=120):
+    """A small float32 BA problem in numpy: cameras along x looking at a
+    cloud, every point seen by every camera with 0.5 px noise, poses and
+    points perturbed; camera 0 fixed and camera 1's x translation pinned."""
+    from sara_tpu_torch.ba import BAProblem
+    from sara_tpu_torch.core import lie
+
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(-2, 2, (P, 3)) + [0, 0, 8.0]
+    intr = np.array([500.0, 500.0, 320.0, 240.0])
+    poses = np.zeros((C, 6))
+    poses[:, 3] = np.linspace(0, 1.5, C)
+    poses[:, :3] = rs.normal(scale=0.02, size=(C, 3))
+    cam = np.repeat(np.arange(C), P).astype(np.int32)
+    pt = np.tile(np.arange(P), C).astype(np.int32)
+    R = lie.so3_exp(torch.from_numpy(poses[:, :3])).numpy()
+    Xc = np.einsum("oij,oj->oi", R[cam], X[pt]) + poses[cam, 3:]
+    uv = intr[:2] * Xc[:, :2] / Xc[:, 2:] + intr[2:]
+    uv += rs.normal(scale=0.5, size=uv.shape)
+    poses[1:] += rs.normal(scale=2e-3, size=(C - 1, 6))
+    pf = np.zeros((C, 6), bool)
+    pf[0] = True
+    pf[1, 3] = True
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)  # noqa
+    t = lambda a: torch.tensor(a, device=device)                        # noqa
+    return BAProblem(
+        poses=f(poses), points=f(X + rs.normal(scale=0.05, size=X.shape)),
+        intrinsics=f(intr), cam_idx=t(cam), pt_idx=t(pt), uv=f(uv),
+        obs_mask=t(np.ones(len(cam), bool)), pose_fixed=t(pf),
+        point_fixed=t(np.zeros(P, bool)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dense", "cg"])
+def test_bundle_adjust_on_card_matches_cpu(cuda, solver):
+    """float32 BA on the card against the port on the CPU: the dense path
+    (bfloat16 products, float32 sums) and the CG path (atomic segment
+    sums) reach the same cost within 1e-3 and poses within 5e-3."""
+    from sara_tpu_torch.ba import BAOptions, bundle_adjust, bundle_adjust_cg
+
+    opts = BAOptions(max_iters=10, solver=solver)
+    run = bundle_adjust if solver == "dense" else bundle_adjust_cg
+    out_c, info_c = run(_ba_problem(cuda), opts)
+    out_h, info_h = run(_ba_problem("cpu"), opts)
+    assert out_c.poses.is_cuda and out_c.points.is_cuda
+    fc, fh = float(info_c["final_cost"]), float(info_h["final_cost"])
+    assert fc < 0.5 * float(info_c["initial_cost"])
+    assert abs(fc - fh) <= 1e-3 * fh
+    np.testing.assert_allclose(out_c.poses.cpu().numpy(),
+                               out_h.poses.numpy(), atol=5e-3)
+
+
+def _keypoint_sequence(n_frames=6, n_points=300, noise=0.3, seed=0,
+                       capacity=512):
+    """Keypoint sets of cameras moving through a point cloud, descriptors
+    naming the world points (the reference tests' sequence, in numpy)."""
+    from sara_tpu_torch.core.types import Keypoints
+
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(-4, 4, (n_points, 3))
+    X[:, 2] = rs.uniform(8.0, 12.0 + 0.5 * n_frames, n_points)
+    desc = rs.normal(size=(n_points, 128))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    K = np.array([[800.0, 0, 512.0], [0, 800.0, 384.0], [0, 0, 1.0]])
+    kps, centers = [], []
+    for f in range(n_frames):
+        ang = 0.35 * np.sin(0.1 * f)
+        R = np.array([[np.cos(ang), 0, np.sin(ang)], [0, 1, 0],
+                      [-np.sin(ang), 0, np.cos(ang)]])
+        c = np.array([2.0 * np.sin(0.1 * f), 0.1 * f, 0.5 * f])
+        Xc = (X - c) @ R.T
+        uv = Xc @ K.T
+        uv = uv[:, :2] / uv[:, 2:]
+        vis = ((Xc[:, 2] > 1.0) & (uv[:, 0] >= 0) & (uv[:, 0] < 1024)
+               & (uv[:, 1] >= 0) & (uv[:, 1] < 768))
+        idx = np.nonzero(vis)[0][:capacity]
+        n = len(idx)
+        xy = np.zeros((capacity, 2), np.float32)
+        xy[:n] = uv[idx] + rs.normal(scale=noise, size=(n, 2))
+        d = np.zeros((capacity, 128), np.float32)
+        d[:n] = desc[idx]
+        mask = np.zeros(capacity, bool)
+        mask[:n] = True
+        kps.append(Keypoints(
+            xy=torch.from_numpy(xy), scale=torch.full((capacity,), 2.0),
+            orientation=torch.zeros(capacity),
+            response=torch.from_numpy(mask.astype(np.float32)),
+            descriptors=torch.from_numpy(d), mask=torch.from_numpy(mask)))
+        centers.append(c)
+    return kps, np.asarray(centers), K
+
+
+@pytest.mark.cuda
+def test_process_keypoints_on_card(cuda):
+    """The odometry pipeline's geometric core on the card: every frame
+    accepted, ATE within the reference test's gate, the map on the host."""
+    from sara_tpu_torch.sfm import OdometryConfig, OdometryPipeline
+    from sara_tpu_torch.utils import ate_rmse
+
+    kps, centers, K = _keypoint_sequence()
+    cfg = OdometryConfig(rel_pose_samples=200, pnp_samples=200,
+                         rel_pose_min_inliers=50, pnp_min_inliers=20,
+                         ba_window=6)
+    pipe = OdometryPipeline(K, cfg)
+    assert pipe.device.type == "cuda"
+    ok = [pipe.process_keypoints(kp, f) for f, kp in enumerate(kps)]
+    assert all(ok)
+    assert pipe._prev_keypoints.xy.is_cuda
+    assert ate_rmse(pipe.trajectory(), centers) < 0.15
+    assert pipe.point_cloud.num_points > 100

@@ -520,6 +520,23 @@ def test_p3p_matches_reference():
                            for R, t in mine) < 2e-3
 
 
+def test_p3p_non_finite_sample_is_invalid_not_an_error():
+    """A sample whose quadric is not finite comes out invalid on both sides
+    (the reference's eigh returns NaN; the port's would raise), and the
+    other samples of the batch are untouched."""
+    rs = np.random.RandomState(3)
+    X = rs.uniform(-2, 2, (2, 3, 3)) + np.array([0, 0, 6.0])
+    rays = X / np.linalg.norm(X, axis=-1, keepdims=True)
+    X[1, 0, 0] = np.nan
+    Rt, tt, vt = tp3p.p3p_lambda_twist(T(X), T(rays))
+    _, _, vj = jp3p.p3p_lambda_twist(J(X[1]), J(rays[1]))
+    assert not vt[1].any() and not np.asarray(vj).any()
+    assert vt[0].any()
+    R1, t1, v1 = tp3p.p3p_lambda_twist(T(X[:1]), T(rays[:1]))
+    assert torch.equal(v1, vt[:1])
+    assert torch.equal(R1[v1], Rt[:1][v1])
+
+
 # ---------------------------------------------------------------------------
 # mvg/degeneracy.py and mvg/extra_solvers.py
 # ---------------------------------------------------------------------------

@@ -15,9 +15,11 @@ from sara_tpu.core import types as jtypes
 from sara_tpu.features.api import SIFTParams as JaxSIFTParams
 from sara_tpu.matching.brute_force import MatchParams as JaxMatchParams
 from sara_tpu_torch.convert import keypoints_from_numpy, params_from_jax
+from sara_tpu_torch.core import cameras as tcam
 from sara_tpu_torch.core import types as ttypes
 from sara_tpu_torch.features.api import SIFTParams, compute_sift_keypoints
 from sara_tpu_torch.image.filtering import gaussian_kernel_1d
+from sara_tpu_torch.sfm.odometry import OdometryPipeline
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "sara_tpu_torch").rglob("*.py")) + [
@@ -29,7 +31,11 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.features.api, sara_tpu_torch.matching, "
             "sara_tpu_torch.mvg, sara_tpu_torch.ransac, "
             "sara_tpu_torch.ransac.orsa, sara_tpu_torch.core.lie, "
-            "sara_tpu_torch.mvg.extra_solvers; "
+            "sara_tpu_torch.mvg.extra_solvers, sara_tpu_torch.core.cameras, "
+            "sara_tpu_torch.image.color, sara_tpu_torch.ba, "
+            "sara_tpu_torch.ba.dense_schur, sara_tpu_torch.sfm, "
+            "sara_tpu_torch.sfm.odometry, sara_tpu_torch.utils, "
+            "sara_tpu_torch.viz; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -60,7 +66,15 @@ def test_entry_point_without_device_raises_on_a_cpu_machine():
     lambda **kw: ttypes.Keypoints.empty(4, **kw).xy,
     lambda **kw: ttypes.Matches.empty(3, **kw).i,
     lambda **kw: gaussian_kernel_1d(1.3, **kw),
-], ids=["Keypoints.empty", "Matches.empty", "gaussian_kernel_1d"])
+    lambda **kw: tcam.Pinhole.from_values(300.0, 300.0, 160.0, 120.0,
+                                          **kw).fx,
+    lambda **kw: tcam.Pinhole.from_matrix(np.eye(3), **kw).u0,
+    lambda **kw: tcam.BrownConrady.from_values(300.0, 300.0, 160.0, 120.0,
+                                               **kw).k,
+    lambda **kw: OdometryPipeline(np.eye(3), **kw)._K,
+], ids=["Keypoints.empty", "Matches.empty", "gaussian_kernel_1d",
+        "Pinhole.from_values", "Pinhole.from_matrix",
+        "BrownConrady.from_values", "OdometryPipeline"])
 def test_constructors_default_to_the_card(make):
     """Without a device these build on the card, or raise without one; the
     CPU only when asked."""
