@@ -54,7 +54,23 @@ raises, so the script exits nonzero and prints no result line):
    a ``DenseSchurSession`` solved twice and ``bundle_adjust_cg``, 10 LM
    iterations each: every cost falls, dense and CG within 1%, the session
    continues; records ms per LM iteration, syncs, peak memory, a profile;
-10. print the kernels line, the card line, then the result line.
+10. phase "loop" (Slice D1 + D3): BASELINE config 3 as ``scripts/eval_vo.py
+   --room --frames 100 --loop`` runs it, 100 renders of the same room at
+   240x320 on the whole loop through ``process_frame`` with a
+   ``LoopCloser`` on the ``on_accept`` hook, then ``close``; gates: >= 99
+   accepted, a verified loop edge, ATE after <= 1.05 x before + 1e-6 and
+   <= 0.15, finite graph and map, K1's vector variant on every frame, the
+   native union-find, and a checkpoint round trip (``save_sfm_state`` /
+   ``load_sfm_state``) into a fresh pipeline on the card; records ms per
+   frame, ATE, the loop edges, the Sim(3) scale drift, ``close``'s ms,
+   syncs and profile;
+11. phase "global_sfm" (Slice D1): ``scripts/bench_sfm_scale.py``'s ring
+   scene (128 views, 900 points, capacity 512, 502 pairs) through
+   ``run_global_sfm`` (chunks of 32 pairs, 256 hypotheses, BA 40
+   iterations); gates: >= 127 edges, ATE <= 0.15, > 500 points, the BA cost
+   falls, finite output; records stage seconds, pairs/s, views/s, one
+   relative pose's syncs and a profile of stages 3-6;
+12. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -425,8 +441,10 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    # Device activity only: the host operators' events are not read, and
+    # collecting them slows a call of many launches and its summary.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
 
@@ -446,6 +464,7 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
         return
     events.sort(key=dev_us, reverse=True)
     log(f"{what} profile", json.dumps({
+        "profiling_s": time.perf_counter() - t0,
         "wall_ms_unprofiled": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top": [{"name": e.key[:80], "calls": e.count,
@@ -743,17 +762,17 @@ def load_render3d():
     return mod
 
 
-def vo_frames(n: int, hw=VO_HW, first: int = 0):
+def vo_frames(n: int, hw=VO_HW, first: int = 0, loop: int = VO_LOOP):
     """Frames ``first`` .. ``first + n - 1`` of the circular loop of
-    scripts/eval_vo.py (100 poses, a = 2 pi i / 100, gentle yaw) through
-    ``make_room(seed=1)``: (K, images, camera centres)."""
+    scripts/eval_vo.py (``loop`` poses, a = 2 pi i / loop, gentle yaw)
+    through ``make_room(seed=1)``: (K, images, camera centres)."""
     r3 = load_render3d()
     h, w = hw
     K = np.array([[0.94 * w, 0, w / 2], [0, 0.94 * w, h / 2], [0, 0, 1.0]])
     planes = r3.make_room(seed=1)
     imgs, centers = [], []
     for i in range(first, first + n):
-        a = 2 * np.pi * i / VO_LOOP
+        a = 2 * np.pi * i / loop
         c = np.array([0.5 + 1.6 * np.sin(a), 0.0, 4.0 + 1.6 * (1 - np.cos(a))])
         yaw = 0.25 * np.sin(a)
         R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
@@ -1027,6 +1046,330 @@ def phase_ba(card: str, device="cuda", size=None, iters: int = 10) -> dict:
                       what="bundle_adjust (dense)")
     return out
 
+LOOP_HW = (240, 320)        # scripts/eval_vo.py --room's default size
+LOOP_FRAMES = 100           # BASELINE config 3: the whole 100-frame loop
+
+
+def replay_closer(closer, gen_state):
+    """A LoopCloser holding ``closer``'s frames and codebook, its generator
+    at ``gen_state`` and no loop edges: it repeats a ``close`` call."""
+    from sara_tpu_torch.sfm.loop_closure import LoopCloser
+
+    c = LoopCloser(closer.K, closer.cfg, device=closer.device)
+    c.signatures = list(closer.signatures)
+    c.keypoint_sets = list(closer.keypoint_sets)
+    c._codebook, c._codebook_dev = closer._codebook, closer._codebook_dev
+    c._gen.set_state(gen_state)
+    return c
+
+
+def phase_loop(ps, card: str, device="cuda", n_frames: int = LOOP_FRAMES,
+               hw=LOOP_HW, warm: int = VO_WARM) -> dict:
+    """BASELINE config 3 as ``scripts/eval_vo.py --room --frames 100
+    --loop`` runs it: ``n_frames`` renders of the room on the circular loop
+    (which returns to its start) through ``OdometryPipeline.process_frame``
+    with ``vo_config()``, a ``LoopCloser`` (min_gap = max(n / 4, 15), 40
+    inliers, 300 hypotheses) fed by the ``on_accept`` hook, then
+    ``closer.close(pipe, accepted - 1)``. The sampler counts are set to 0
+    just before the first frame and read just after ``close``. Gates: all
+    frames but one accepted, a loop closed with at least one verified edge,
+    ATE after <= 1.05 x ATE before + 1e-6 and <= 0.15, a finite pose graph
+    and map, the native union-find, and on the card K1's vector variant on
+    every frame and nothing else. Then the state goes through
+    ``save_sfm_state`` / ``load_sfm_state`` into a fresh pipeline, which
+    must hold the same trajectory, map and generator state. Records ms per
+    frame (warm: frames 0 .. warm - 1; steady: the rest), ATE before and
+    after, the loop edges, the Sim(3) scale drift, ``close``'s ms and, on
+    a replay of the same ``close``, its host syncs and a profile."""
+    import tempfile
+    from pathlib import Path
+
+    from sara_tpu_torch.features.api import compute_sift_keypoints
+    from sara_tpu_torch.io import load_sfm_state, save_sfm_state
+    from sara_tpu_torch.sfm import OdometryPipeline, disjoint_sets
+    from sara_tpu_torch.sfm import loop_closure as lc
+    from sara_tpu_torch.utils import ate_rmse
+    from sara_tpu_torch.utils.host import fetch
+
+    dev = torch.device(device)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    t0 = time.perf_counter()
+    K, imgs, centers = vo_frames(n_frames, hw, loop=n_frames)
+    log(f"loop: rendered {len(imgs)} frames {hw} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    backend = disjoint_sets.backend()
+    check(backend == "native", f"loop: union-find backend {backend}")
+    cfg = vo_config()
+    ps.reset_counts()
+    compute_sift_keypoints(imgs[0], cfg.sift, device=dev)
+    sync()
+    per_frame = ps.counts()["K1"]
+
+    pipe = OdometryPipeline(K, cfg, device=dev)
+    closer = lc.LoopCloser(K, lc.LoopClosureConfig(
+        min_gap=max(n_frames // 4, 15), min_inliers=40,
+        rel_pose_samples=300), device=dev)
+    pipe.on_accept = lambda kp, vid: closer.add_frame(kp)
+    # Forwarded unchanged; keeps the pose-graph problem and its result.
+    optimize = lc.optimize_pose_graph
+    seen = {}
+
+    def recording(prob, **kwargs):
+        result = optimize(prob, **kwargs)
+        seen.update(prob=prob, kwargs=kwargs, result=result)
+        return result
+
+    ps.reset_counts()
+    t_frames = time.perf_counter()
+    frame_ms, ok = [], []
+    for f in range(n_frames):
+        t = time.perf_counter()
+        ok.append(bool(pipe.process_frame(imgs[f], f)))
+        sync()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    t_frames = time.perf_counter() - t_frames
+    accepted = int(sum(ok))
+    gt = centers[np.flatnonzero(ok)]
+    ate_before = ate_rmse(pipe.trajectory(), gt)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    t_save = time.perf_counter()
+    save_sfm_state(str(tmp / "before_close.npz"), pipe)
+    t_save = time.perf_counter() - t_save
+    gen_state = closer._gen.get_state()
+    lc.optimize_pose_graph = recording
+    try:
+        sync()
+        t = time.perf_counter()
+        closed = closer.close(pipe, accepted - 1)
+        sync()
+        close_ms = (time.perf_counter() - t) * 1e3
+    finally:
+        lc.optimize_pose_graph = optimize
+    counts = ps.counts()
+    traj = pipe.trajectory()
+    ate_after = ate_rmse(traj, gt)
+    points = pipe.point_cloud.points
+    out = {"frames": n_frames, "hw": list(hw), "accepted": accepted,
+           "warm_ms_per_frame": float(np.mean(frame_ms[:warm])),
+           "steady_ms_per_frame": float(np.mean(frame_ms[warm:])),
+           "steady_ms_per_frame_median": float(np.median(frame_ms[warm:])),
+           "ate_before": ate_before, "ate_after": ate_after,
+           "path_length": float(np.linalg.norm(
+               np.diff(centers, axis=0), axis=1).sum()),
+           "map_points": pipe.point_cloud.num_points, "closed": bool(closed),
+           "loop_edges": [{"a": int(a), "b": int(b), "inliers": int(n),
+                           "kind": "metric" if metric else "E-only",
+                           "rel_scale": d_rel}
+                          for (a, b, _R, _t, n, metric, d_rel)
+                          in closer.loop_edges],
+           "frames_s": t_frames, "checkpoint_save_s": t_save,
+           "close_ms": close_ms, "k1_per_frame": per_frame,
+           "sampler_counts": counts, "union_find": backend}
+    if "prob" in seen:
+        prob, kwargs = seen["prob"], seen["kwargs"]
+        poses, c0, cf = fetch(seen["result"][0].poses,
+                              seen["result"][1]["initial_cost"],
+                              seen["result"][1]["final_cost"])
+        s = np.exp(poses[:, 6]) if poses.shape[1] == 7 else np.ones(1)
+        out["pose_graph"] = {
+            "poses": list(prob.poses.shape), "edges": int(
+                prob.edge_i.shape[0]), "dtype": str(prob.poses.dtype)[6:],
+            "huber_delta": kwargs.get("huber_delta"),
+            "cost": [float(c0), float(cf)],
+            "scale_min": float(s.min()), "scale_max": float(s.max()),
+            "scale_drift": float(s.max() / s.min() - 1.0)}
+        _, out["pose_graph"]["optimize_ms"] = events_ms(
+            lambda: optimize(prob, **kwargs), dev)
+    log("loop", json.dumps(out), f"({card})")
+    check(accepted >= n_frames - 1, f"loop: {accepted}/{n_frames} accepted")
+    check(bool(closed) and len(closer.loop_edges) >= 1,
+          "loop: no verified loop edge")
+    check(ate_after <= 1.05 * ate_before + 1e-6,
+          f"loop: ATE {ate_before} -> {ate_after}")
+    check(ate_after <= 0.15, f"loop: ATE after closure {ate_after}")
+    check(bool(np.isfinite(traj).all() and np.isfinite(points).all()),
+          "loop: non-finite pose graph or map")
+    if dev.type == "cuda":
+        check(per_frame >= 1 and counts == {
+            "K1": n_frames * per_frame, "K1 general": 0, "K2": 0,
+            "K2 general": 0, "index copies": 0},
+            f"loop: expected {n_frames} x {per_frame} launches of K1's "
+            f"vector variant and nothing else, got {counts}")
+
+    # Checkpoint round trip into a fresh pipeline on the same device.
+    path = str(tmp / "after_close.npz")
+    save_sfm_state(path, pipe)
+    t_load = time.perf_counter()
+    fresh = load_sfm_state(path, OdometryPipeline(K, cfg, device=dev))
+    out["checkpoint_load_s"] = time.perf_counter() - t_load
+    prev = [torch.equal(a, b) and a.device == b.device for a, b in
+            zip(fresh._prev_keypoints, pipe._prev_keypoints)]
+    same = {"trajectory": bool(np.array_equal(fresh.trajectory(), traj)),
+            "map": bool(np.array_equal(fresh.point_cloud.points, points)),
+            "generator": bool(torch.equal(fresh._gen.get_state(),
+                                          pipe._gen.get_state())),
+            "prev_keypoints": all(prev), "frames": len(fresh.frames)
+            == len(pipe.frames)}
+    out["checkpoint"] = same
+    log("loop: checkpoint round trip", json.dumps(same),
+        f"load {out['checkpoint_load_s']:.2f} s")
+    check(all(same.values()), f"loop: checkpoint round trip {same}")
+
+    if dev.type == "cuda":
+        # The same close again from the saved state: syncs, then a profile.
+        def replay():
+            p = load_sfm_state(str(tmp / "before_close.npz"),
+                               OdometryPipeline(K, cfg, device=dev))
+            c = replay_closer(closer, gen_state)
+            return lambda: c.close(p, accepted - 1)
+
+        out["close_syncs"] = count_syncs(replay())
+        log("loop: host syncs in close", json.dumps(out["close_syncs"]))
+        profile_frame(replay(), close_ms, top=15, what="loop close")
+    for f in tmp.iterdir():
+        f.unlink()
+    tmp.rmdir()
+    return out
+
+
+SFM_SIZE = dict(n_views=128, n_points=900, capacity=512)  # bench_sfm_scale
+
+
+def make_ring_scene(n_views: int, n_points: int, capacity: int,
+                    noise: float = 0.3, seed: int = 1, device="cuda"):
+    """scripts/bench_sfm_scale.py::_make_ring_scene in numpy: cameras on a
+    ring of radius 18 looking at a central cloud of ``n_points`` points
+    with planted descriptors, ``capacity`` keypoints per view (kept by
+    point id), ``noise`` px of pixel noise. Returns (port Keypoints on
+    ``device``, camera centres, K)."""
+    from sara_tpu_torch.core.types import Keypoints
+
+    rs = np.random.RandomState(seed)
+    X = rs.uniform(-5, 5, (n_points, 3))
+    desc = rs.normal(size=(n_points, 128))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    K = np.array([[800.0, 0, 512.0], [0, 800.0, 384.0], [0, 0, 1.0]])
+    dev = torch.device(device)
+    kps, centers = [], []
+    for f in range(n_views):
+        ang = 2 * np.pi * f / n_views
+        c = np.array([18.0 * np.cos(ang), 2.0 * np.sin(3 * ang),
+                      18.0 * np.sin(ang)])
+        z = -c / np.linalg.norm(c)
+        xax = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        xax /= np.linalg.norm(xax)
+        R = np.stack([xax, np.cross(z, xax), z])     # world -> camera rows
+        t = -R @ c
+        centers.append(c)
+        Xc = X @ R.T + t
+        uv = Xc @ K.T
+        uv = uv[:, :2] / uv[:, 2:]
+        inside = ((Xc[:, 2] > 1.0) & (uv[:, 0] >= 0) & (uv[:, 0] < 1024)
+                  & (uv[:, 1] >= 0) & (uv[:, 1] < 768))
+        idx = np.nonzero(inside)[0][:capacity]
+        n = len(idx)
+        xy = np.zeros((capacity, 2), np.float32)
+        xy[:n] = uv[idx] + rs.normal(scale=noise, size=(n, 2))
+        d = np.zeros((capacity, 128), np.float32)
+        d[:n] = desc[idx]
+        mask = np.zeros(capacity, bool)
+        mask[:n] = True
+        f = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
+        kps.append(Keypoints(
+            xy=f(xy), scale=f(np.full(capacity, 2.0, np.float32)),
+            orientation=f(np.zeros(capacity, np.float32)),
+            response=f(mask.astype(np.float32)), descriptors=f(d),
+            mask=f(mask)))
+    return kps, np.asarray(centers), K
+
+
+def phase_global_sfm(card: str, device="cuda", size=None, window: int = 4,
+                     chunk: int = 32, samples: int = 256,
+                     ba_iters: int = 40) -> dict:
+    """BASELINE config 4's building block at scripts/bench_sfm_scale.py's
+    default size: the ring scene (128 views, 900 points, capacity 512, 0.3
+    px), each view paired with the next ``window`` (502 pairs), through
+    ``run_global_sfm`` with ``GlobalSfMConfig(rel_pose_samples=256,
+    min_pair_inliers=20, pair_chunk=32, ba_options=BAOptions(max_iters=40))``.
+    Gates: at least views - 1 edges, ATE <= 0.15 on the ring of radius 18,
+    more than 500 points, the BA's final cost below its initial cost,
+    everything finite. Records each stage's seconds, pairs/s and views/s,
+    and on the card the host syncs and ms of one relative pose of the pair
+    stage and a profile of stages 3-6 (averaging, polish, triangulation,
+    BA) run again on the same epipolar graph."""
+    from sara_tpu_torch.ba import BAOptions
+    from sara_tpu_torch.sfm import global_sfm as gs
+    from sara_tpu_torch.utils import ate_rmse
+    from sara_tpu_torch.utils.host import fetch
+
+    dev = torch.device(device)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    kps, centers_gt, K = make_ring_scene(**(size or SFM_SIZE), device=dev)
+    V = len(kps)
+    pairs = [(i, j) for i in range(V)
+             for j in range(i + 1, min(i + 1 + window, V))]
+    cfg = gs.GlobalSfMConfig(rel_pose_samples=samples, min_pair_inliers=20,
+                             pair_chunk=chunk,
+                             ba_options=BAOptions(max_iters=ba_iters))
+    sync()
+    t0 = time.perf_counter()
+    res = gs.run_global_sfm(kps, K, pairs=pairs, config=cfg, device=dev)
+    total = time.perf_counter() - t0
+    R, t, X = res["R"], res["t"], res["points"]
+    centers = np.stack([-R[v].T @ t[v] for v in range(V)])
+    ate = ate_rmse(centers, centers_gt)
+    st = res["stage_times"]
+    info = res["ba_info"]
+    out = {"views": V, "pairs": len(pairs), "edges": res["num_edges"],
+           "points": len(X), "observations": res["n_obs"], "ate": ate,
+           "ring_radius": 18.0, "total_s": total, "stage_s": st,
+           "pairs_per_s": len(pairs) / st["pair_stage"],
+           "views_per_s": V / total,
+           "ba_cost": [float(info["initial_cost"]),
+                       float(info["final_cost"])]}
+    if dev.type == "cuda":
+        stack = lambda name: torch.stack([getattr(k, name)   # noqa: E731
+                                          for k in kps])
+        xy, desc, msk = stack("xy"), stack("descriptors"), stack("mask")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+
+        def one_pair():
+            return fetch(*gs._pair_chunk_program(
+                xy, desc, msk, [0], [1], gen, Kt, cfg.match_ratio,
+                cfg.rel_pose_threshold_px, cfg.rel_pose_samples,
+                cfg.min_pair_inliers))
+
+        out["one_pair_ms"] = timed_call_ms(one_pair, dev)
+        out["one_pair_syncs"] = count_syncs(one_pair)
+        xy_host = fetch(*[k.xy for k in kps])
+
+        def stages():
+            return gs._global_stages(V, K, cfg, dev, res["tracker"], xy_host,
+                                     res["edges"], res["edge_R"],
+                                     res["edge_t"], res["edge_feats"],
+                                     lambda name: None)
+
+        sync()
+        t1 = time.perf_counter()
+        stages()
+        sync()
+        out["stages_3_6_ms"] = (time.perf_counter() - t1) * 1e3
+    log("global_sfm", json.dumps(out), f"({card})")
+    check(res["num_edges"] >= V - 1, f"global_sfm: {res['num_edges']} edges")
+    check(ate <= 0.15, f"global_sfm: ATE {ate}")
+    check(len(X) > 500, f"global_sfm: {len(X)} points")
+    check(out["ba_cost"][1] < out["ba_cost"][0],
+          f"global_sfm: BA cost {out['ba_cost']}")
+    check(bool(np.isfinite(R).all() and np.isfinite(t).all()
+               and np.isfinite(X).all()), "global_sfm: non-finite output")
+    if dev.type == "cuda":
+        profile_frame(stages, out["stages_3_6_ms"], top=15,
+                      what="global sfm stages 3-6")
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1061,6 +1404,8 @@ def main() -> int:
     timed("two-view", phase_two_view, frames, card)
     vo = timed("vo", phase_vo, ps, card)
     timed("ba", phase_ba, card)
+    loop = timed("loop", phase_loop, ps, card)
+    timed("global_sfm", phase_global_sfm, card)
     check(not any(m.split(".")[0] in ("jax", "sara_tpu")
                   for m in sys.modules), "JAX or sara_tpu was imported")
 
@@ -1091,11 +1436,13 @@ def main() -> int:
 
     kernels = [
         entry("patch_sampler", "K1", "sara_tpu/ops/patch_sampler.py:170",
-              rows, launches + k1_on_k2_path + vo["sampler_counts"]["K1"],
+              rows, launches + k1_on_k2_path + vo["sampler_counts"]["K1"]
+              + loop["sampler_counts"]["K1"],
               0.0, "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
                                 "pack_x": k1_on_k2_path,
-                                "vo": vo["sampler_counts"]["K1"]}),
+                                "vo": vo["sampler_counts"]["K1"],
+                                "loop": loop["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

@@ -7,8 +7,9 @@ Every Pallas kernel of the reference becomes a kernel written by hand for
 Hopper (``ops/csrc``), with a plain PyTorch version beside it.
 
 Ported so far: the SIFT frontend and the brute-force matcher (Slice A),
-two-view geometry (Slice B), and monocular visual odometry with bundle
-adjustment (Slice C).
+two-view geometry (Slice B), monocular visual odometry with bundle
+adjustment (Slice C), loop closure and global SfM (Slice D1) and
+checkpoints (Slice D3).
 
 core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3),
           camera models (pinhole, Brown-Conrady, Kannala-Brandt, omni)
@@ -20,12 +21,16 @@ mvg       minimal solvers (4/5/7/8-point, P3P), two-view geometry
 ransac    batched RANSAC, ORSA and the H / F / E + pose / PnP estimators
 ba        LM bundle adjustment: dense-Schur and matrix-free Schur + PCG
 sfm       union-find (native C++), feature tracks, pose graph, point cloud,
-          the odometry pipeline
-utils     trajectory metrics (Umeyama alignment, ATE), host transfers
+          the odometry pipeline, SE(3)/Sim(3) pose-graph optimization,
+          loop closure (VLAD retrieval, metric loop edges), rotation
+          averaging, edge scales, the global SfM pipeline
+io        checkpoint / resume of the odometry state
+utils     trajectory metrics (Umeyama alignment, ATE), host transfers,
+          logging
 viz       the self-contained HTML point-cloud viewer
 ops       top-k, small-matrix algebra and the CUDA patch-sampler kernels
-convert   carries parameters, keypoints and BA problems over from the JAX
-          package
+convert   carries parameters, keypoints, BA and pose-graph problems over
+          from the JAX package
 
 Entry points run on the card: ``device=None`` means CUDA, and without a
 card they raise instead of falling back to the CPU. Pass ``device="cpu"``

@@ -1,11 +1,11 @@
 """Carry state over from the JAX package.
 
 The port has no learned weights; what a user carries over from
-``sara_tpu`` is its static configuration (SIFT, matcher, bundle adjustment
-and odometry settings), its keypoint sets and its bundle-adjustment
-problems. The converters are duck-typed (``dataclasses.asdict`` or
-``_asdict`` and the class name; numpy arrays), so this module imports
-nothing of JAX or ``sara_tpu``.
+``sara_tpu`` is its static configuration (SIFT, matcher, bundle
+adjustment, odometry, loop-closure and global-SfM settings), its keypoint
+sets, and its bundle-adjustment and pose-graph problems. The converters
+are duck-typed (``dataclasses.asdict`` or ``_asdict`` and the class name;
+numpy arrays), so this module imports nothing of JAX or ``sara_tpu``.
 """
 
 from __future__ import annotations
@@ -38,9 +38,12 @@ def _sift_from_fields(fields: dict) -> SIFTParams:
 
 def params_from_jax(obj):
     """The port's twin of a JAX ``SIFTParams``, ``DoGParams``,
-    ``PyramidParams``, ``MatchParams``, ``BAOptions`` or
-    ``OdometryConfig`` (same field values, nested ones included;
-    ``desc_sampler="pallas"`` becomes ``"kernel"``)."""
+    ``PyramidParams``, ``MatchParams``, ``BAOptions``, ``OdometryConfig``,
+    ``LoopClosureConfig`` or ``GlobalSfMConfig`` (same field values,
+    nested ones included; ``desc_sampler="pallas"`` becomes
+    ``"kernel"``)."""
+    from sara_tpu_torch.sfm.global_sfm import GlobalSfMConfig
+    from sara_tpu_torch.sfm.loop_closure import LoopClosureConfig
     from sara_tpu_torch.sfm.odometry import OdometryConfig
 
     name = type(obj).__name__
@@ -51,6 +54,11 @@ def params_from_jax(obj):
         fields["sift"] = _sift_from_fields(fields["sift"])
         fields["ba_options"] = params_from_jax(fields["ba_options"])
         return OdometryConfig(**fields)
+    if name == "GlobalSfMConfig":
+        fields["ba_options"] = params_from_jax(fields["ba_options"])
+        return GlobalSfMConfig(**fields)
+    if name == "LoopClosureConfig":
+        return LoopClosureConfig(**fields)
     if name == "PyramidParams":
         return PyramidParams(**fields)
     if name == "DoGParams":
@@ -94,3 +102,27 @@ def ba_problem_from_numpy(fields, device: str | torch.device | None = None
     return BAProblem(*(None if a is None
                        else torch.as_tensor(np.array(a)).to(dev)
                        for a in arrays))
+
+
+def pose_graph_problem_from_numpy(fields,
+                                  device: str | torch.device | None = None,
+                                  dtype: torch.dtype | None = None):
+    """The port's PoseGraphProblem from a JAX ``PoseGraphProblem`` or any
+    sequence of its seven fields (poses, edge_i, edge_j, rel_pose, weight,
+    edge_mask, pose_fixed) as arrays, on ``device`` (None = the CUDA
+    device). The float fields take ``dtype`` when given, else keep their
+    own; index and mask arrays keep theirs."""
+    from sara_tpu_torch.sfm.pose_graph_opt import PoseGraphProblem
+
+    dev = resolve_device(device)
+    arrays = [np.array(a) for a in fields]
+    if len(arrays) != len(PoseGraphProblem._fields):
+        raise ValueError(f"expected {len(PoseGraphProblem._fields)} fields, "
+                         f"got {len(arrays)}")
+    out = []
+    for a in arrays:
+        t = torch.as_tensor(a)
+        if dtype is not None and t.dtype.is_floating_point:
+            t = t.to(dtype)
+        out.append(t.to(dev))
+    return PoseGraphProblem(*out)

@@ -87,6 +87,23 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def assemble_blocks(n: int, terms) -> torch.Tensor:
+    """Dense (n*D, n*D) matrix from (rows, cols, blocks) terms: blocks[e]
+    (D, D) added at block (rows[e], cols[e]), repeated pairs accumulating.
+
+    The reference's ``H.at[rows, :, cols, :].add(blocks)`` accumulates
+    repeated indices; ``H[rows, :, cols, :] += blocks`` in PyTorch is a
+    non-accumulating ``index_put_`` that keeps one of the duplicates. Here
+    every term is one ``index_add_`` over the flattened (row, col) block
+    index."""
+    blocks = terms[0][2]
+    D = blocks.shape[-1]
+    buf = blocks.new_zeros((n * n, D, D))
+    for rows, cols, b in terms:
+        buf.index_add_(0, rows.long() * n + cols.long(), b)
+    return buf.view(n, n, D, D).transpose(1, 2).reshape(n * D, n * D)
+
+
 def batched_inv(A: torch.Tensor) -> torch.Tensor:
     """Inverse of (..., n, n) small-matrix batches (closed form for
     n <= 3, batched LU otherwise)."""

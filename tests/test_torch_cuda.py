@@ -1,6 +1,7 @@
-"""Card-only tests of the port's CUDA kernels, of Slice B's estimators and
-of Slice C's bundle adjustment and odometry core on the card (marker
-``cuda``).
+"""Card-only tests of the port's CUDA kernels, of Slice B's estimators, of
+Slice C's bundle adjustment and odometry core, and of Slice D's pose-graph
+optimizer, rotation averaging, checkpoints and global SfM on the card
+(marker ``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -395,3 +396,139 @@ def test_process_keypoints_on_card(cuda):
     assert pipe._prev_keypoints.xy.is_cuda
     assert ate_rmse(pipe.trajectory(), centers) < 0.15
     assert pipe.point_cloud.num_points > 100
+
+
+def _drifted_circle(n=30, seed=3):
+    """tests/test_pose_graph_opt.py's drifted loop in numpy (float64
+    fields): exact odometry measurements along a noisy integrated chain and
+    one exact loop edge of weight 10."""
+    from sara_tpu_torch.core import lie
+
+    exp = lambda w: lie.so3_exp(torch.from_numpy(w)).numpy()    # noqa: E731
+    log = lambda R: lie.so3_log(torch.from_numpy(R)).numpy()    # noqa: E731
+    rs = np.random.RandomState(seed)
+    gt = []
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]])
+        gt.append((R, -R @ (5.0 * np.array([np.sin(a), 0, 1 - np.cos(a)]))))
+    rel = lambda p, q: (q[0] @ p[0].T, q[1] - q[0] @ p[0].T @ p[1])  # noqa
+    noisy, edges = [gt[0]], []
+    for k in range(1, n):
+        R, t = rel(gt[k - 1], gt[k])
+        Rn = exp(log(R) + rs.normal(scale=0.01, size=3))
+        Rp, tp = noisy[-1]
+        noisy.append((Rn @ Rp, Rn @ tp + t + rs.normal(scale=0.02, size=3)))
+        edges.append((k - 1, k, R, t, 1.0))
+    edges.append((n - 1, 0, *rel(gt[n - 1], gt[0]), 10.0))
+    pack = lambda R, t: np.concatenate([log(R), t])             # noqa: E731
+    return [np.stack([pack(R, t) for R, t in noisy]),
+            np.asarray([e[0] for e in edges]),
+            np.asarray([e[1] for e in edges]),
+            np.stack([pack(e[2], e[3]) for e in edges]),
+            np.asarray([e[4] for e in edges]), np.ones(len(edges), bool),
+            np.asarray([True] + [False] * (n - 1))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["dense", "cg"])
+def test_optimize_pose_graph_on_card_matches_cpu(cuda, method):
+    """The pose-graph LM on the card against the CPU: float64 poses within
+    1e-6 (CG's segment sums are float atomics on the card), and a float32
+    run on the card that lowers the cost below 1e-3 x its start."""
+    from sara_tpu_torch.convert import pose_graph_problem_from_numpy
+    from sara_tpu_torch.sfm.pose_graph_opt import optimize_pose_graph
+
+    fields = _drifted_circle()
+    kw = dict(max_iters=30, method=method, cg_iters=100)
+    out_c, info_c = optimize_pose_graph(
+        pose_graph_problem_from_numpy(fields, cuda), **kw)
+    out_h, info_h = optimize_pose_graph(
+        pose_graph_problem_from_numpy(fields, "cpu"), **kw)
+    assert out_c.poses.is_cuda
+    np.testing.assert_allclose(out_c.poses.cpu().numpy(), out_h.poses.numpy(),
+                               atol=1e-6)
+    p32 = pose_graph_problem_from_numpy(fields, cuda, torch.float32)
+    _, info32 = optimize_pose_graph(p32, **kw)
+    assert float(info32["final_cost"]) < 1e-3 * float(info32["initial_cost"])
+
+
+@pytest.mark.cuda
+def test_average_rotations_on_card_matches_cpu(cuda):
+    """Rotation averaging of a 16-view graph with 15% outlier edges on the
+    card against the CPU: chordal distance <= 1e-6 in float64 (cuSOLVER's
+    QR may pick other column signs; the gauge removal is invariant), <=
+    1e-4 between the card's float32 and float64 runs."""
+    from sara_tpu_torch.core import lie
+    from sara_tpu_torch.sfm.rotation_averaging import average_rotations
+
+    rs = np.random.RandomState(2)
+    n = 16
+    Rw = [lie.so3_exp(torch.tensor([0.0, 2 * np.pi * k / n, 0.0],
+                                   dtype=torch.float64)).numpy()
+          for k in range(n)]
+    ei, ej, Rr = [], [], []
+    for k in range(n):
+        for d in (1, 2, 3):
+            j = (k + d) % n
+            ei.append(k), ej.append(j), Rr.append(Rw[j] @ Rw[k].T)
+    for b in rs.choice(len(Rr), len(Rr) * 15 // 100, replace=False):
+        Rr[b] = lie.so3_exp(torch.from_numpy(rs.normal(size=3))).numpy()
+    args = [torch.tensor(ei), torch.tensor(ej), torch.from_numpy(np.stack(Rr))]
+    R_h = average_rotations(n, *args)
+    R_c = average_rotations(n, *(a.to(cuda) for a in args))
+    R_32 = average_rotations(n, *(a.to(cuda) for a in args[:2]),
+                             args[2].to(cuda).float())
+    assert R_c.is_cuda and R_32.dtype == torch.float32
+    dist = lambda A, B: (A - B).flatten(1).norm(dim=1).max().item()  # noqa
+    assert dist(R_c.cpu(), R_h) <= 1e-6
+    assert dist(R_32.double().cpu(), R_h) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """save_sfm_state / load_sfm_state of a pipeline on the card: the
+    restored pipeline holds the same trajectory, map and generator state,
+    its keypoints on the card, and goes on accepting frames."""
+    from sara_tpu_torch.io import load_sfm_state, save_sfm_state
+    from sara_tpu_torch.sfm import OdometryConfig, OdometryPipeline
+
+    kps, _, K = _keypoint_sequence()
+    cfg = OdometryConfig(rel_pose_samples=200, pnp_samples=200,
+                         rel_pose_min_inliers=50, pnp_min_inliers=20,
+                         ba_window=6)
+    pipe = OdometryPipeline(K, cfg)
+    assert all(pipe.process_keypoints(kp, f) for f, kp in enumerate(kps[:4]))
+    path = str(tmp_path / "state.npz")
+    save_sfm_state(path, pipe)
+    back = load_sfm_state(path, OdometryPipeline(K, cfg))
+    np.testing.assert_array_equal(back.trajectory(), pipe.trajectory())
+    np.testing.assert_array_equal(back.point_cloud.points,
+                                  pipe.point_cloud.points)
+    assert torch.equal(back._gen.get_state(), pipe._gen.get_state())
+    for a, b in zip(back._prev_keypoints, pipe._prev_keypoints):
+        assert a.is_cuda and torch.equal(a, b)
+    assert all(back.process_keypoints(kp, f)
+               for f, kp in enumerate(kps[4:], start=4))
+
+
+@pytest.mark.cuda
+def test_run_global_sfm_on_card(cuda):
+    """The global pipeline on the card, chunks of 8 pairs over 6 views of
+    the reference tests' sequence: the reference test's gates."""
+    from sara_tpu_torch.ba import BAOptions
+    from sara_tpu_torch.sfm.global_sfm import GlobalSfMConfig, run_global_sfm
+    from sara_tpu_torch.utils import ate_rmse
+
+    kps, centers_gt, K = _keypoint_sequence()
+    cfg = GlobalSfMConfig(rel_pose_samples=200, min_pair_inliers=30,
+                          pair_chunk=8, ba_options=BAOptions(max_iters=20))
+    out = run_global_sfm(kps, K, config=cfg)
+    assert out["ba_problem"].poses.is_cuda
+    V = len(kps)
+    centers = np.stack([-out["R"][v].T @ out["t"][v] for v in range(V)])
+    assert out["num_edges"] >= V - 1
+    assert ate_rmse(centers, centers_gt) < 0.15
+    assert len(out["points"]) > 100
+    assert out["ba_info"]["final_cost"] < out["ba_info"]["initial_cost"]

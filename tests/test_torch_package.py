@@ -19,7 +19,10 @@ from sara_tpu_torch.core import cameras as tcam
 from sara_tpu_torch.core import types as ttypes
 from sara_tpu_torch.features.api import SIFTParams, compute_sift_keypoints
 from sara_tpu_torch.image.filtering import gaussian_kernel_1d
-from sara_tpu_torch.sfm.odometry import OdometryPipeline
+from sara_tpu_torch.io import load_sfm_state, save_sfm_state
+from sara_tpu_torch.sfm.global_sfm import run_global_sfm
+from sara_tpu_torch.sfm.loop_closure import LoopCloser
+from sara_tpu_torch.sfm.odometry import OdometryConfig, OdometryPipeline
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "sara_tpu_torch").rglob("*.py")) + [
@@ -35,7 +38,11 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.image.color, sara_tpu_torch.ba, "
             "sara_tpu_torch.ba.dense_schur, sara_tpu_torch.sfm, "
             "sara_tpu_torch.sfm.odometry, sara_tpu_torch.utils, "
-            "sara_tpu_torch.viz; "
+            "sara_tpu_torch.viz, sara_tpu_torch.io, "
+            "sara_tpu_torch.sfm.pose_graph_opt, "
+            "sara_tpu_torch.sfm.rotation_averaging, "
+            "sara_tpu_torch.sfm.edge_scales, sara_tpu_torch.sfm.loop_closure, "
+            "sara_tpu_torch.sfm.global_sfm, sara_tpu_torch.utils.log; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -72,9 +79,12 @@ def test_entry_point_without_device_raises_on_a_cpu_machine():
     lambda **kw: tcam.BrownConrady.from_values(300.0, 300.0, 160.0, 120.0,
                                                **kw).k,
     lambda **kw: OdometryPipeline(np.eye(3), **kw)._K,
+    lambda **kw: LoopCloser(np.eye(3), **kw)._K,
+    lambda **kw: _loaded_pipeline(**kw)._prev_keypoints.descriptors,
 ], ids=["Keypoints.empty", "Matches.empty", "gaussian_kernel_1d",
         "Pinhole.from_values", "Pinhole.from_matrix",
-        "BrownConrady.from_values", "OdometryPipeline"])
+        "BrownConrady.from_values", "OdometryPipeline", "LoopCloser",
+        "load_sfm_state"])
 def test_constructors_default_to_the_card(make):
     """Without a device these build on the card, or raise without one; the
     CPU only when asked."""
@@ -84,6 +94,58 @@ def test_constructors_default_to_the_card(make):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+def _loaded_pipeline(**kw):
+    """A checkpoint of two keypoint frames (written on the CPU) loaded into
+    a pipeline built with ``kw``: its restored keypoints follow that
+    pipeline's device."""
+    import tempfile
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_sfm_pipeline import _make_sequence
+
+    kps, _, K = _make_sequence(n_frames=2, noise=0.1)
+    cfg = OdometryConfig(rel_pose_samples=100, pnp_samples=100,
+                         rel_pose_min_inliers=30, pnp_min_inliers=15)
+    # Written where it is read (a generator takes only the state of a
+    # generator of its own device type).
+    src = kw.get("device", "cuda" if torch.cuda.is_available() else "cpu")
+    pipe = OdometryPipeline(K, cfg, device=src)
+    for f, kp in enumerate(kps):
+        pipe.process_keypoints(keypoints_from_numpy(kp, src), f)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "state.npz")
+        save_sfm_state(path, pipe)
+        return load_sfm_state(path, OdometryPipeline(K, cfg, **kw))
+
+
+def test_run_global_sfm_defaults_to_the_card():
+    """run_global_sfm(device=None) resolves the card before any work, and
+    raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (the card run is in "
+                    "chip_smoke.py's phase global_sfm)")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_global_sfm([], np.eye(3))
+
+
+def test_package_data_ships_every_native_source():
+    """Every file under sara_tpu_torch/**/csrc/ matches a package-data
+    pattern, so an installed package builds the native union-find (and the
+    kernels) instead of quietly running NumPy."""
+    import fnmatch
+    import tomllib
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    patterns = data["tool"]["setuptools"]["package-data"]["sara_tpu_torch"]
+    pkg = ROOT / "sara_tpu_torch"
+    sources = [p.relative_to(pkg).as_posix()
+               for p in pkg.rglob("csrc/*") if p.is_file()]
+    assert "sfm/csrc/sara_native.cpp" in sources
+    assert "ops/csrc/patch_sampler.cu" in sources
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, pat) for pat in patterns), src
 
 
 def test_tf32_pinned_off():
@@ -137,3 +199,21 @@ def test_keypoints_from_numpy_and_container_ops():
     assert ttypes.Matches.empty(3, device="cpu").capacity == 3
     with pytest.raises(ValueError):
         keypoints_from_numpy(fields[:5], "cpu")
+
+
+def test_logger_is_the_twin():
+    """get_logger: the port's root is ``sara_tpu_torch`` (one stderr
+    handler, not propagated), the reference's format and level variable."""
+    import logging
+
+    from sara_tpu.utils import log as jlog
+    from sara_tpu_torch.utils import get_logger
+    from sara_tpu_torch.utils import log as tlog
+
+    lg = get_logger("sara_tpu_torch.loop")
+    root = logging.getLogger("sara_tpu_torch")
+    assert lg.name == "sara_tpu_torch.loop" and lg.parent is root
+    assert len(root.handlers) == 1 and not root.propagate
+    assert get_logger() is root and len(root.handlers) == 1
+    assert tlog._FORMAT == jlog._FORMAT
+    assert "SARA_TPU_LOG" in Path(tlog.__file__).read_text()

@@ -44,6 +44,17 @@ from render3d import make_room, render  # noqa: E402
 from test_sfm_pipeline import _make_sequence  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this module: the suite runs six workers on
+    the machine's cores, and torch's default of a thread per core makes
+    the port's many small operations wait on each other's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def canonical(labels):
     """Labels renumbered in first-occurrence order (a partition's id)."""
     _, first, inv = np.unique(labels, return_index=True, return_inverse=True)
