@@ -70,7 +70,25 @@ raises, so the script exits nonzero and prints no result line):
    iterations); gates: >= 127 edges, ATE <= 0.15, > 500 points, the BA cost
    falls, finite output; records stage seconds, pairs/s, views/s, one
    relative pose's syncs and a profile of stages 3-6;
-12. print the kernels line, the card line, then the result line.
+12. phase "low_precision" (after step 6): the frontend with bfloat16
+   orientation maps at stride 2 against float32 at stride 1 on the frame
+   pair (ms, device busy, K1's launches and ms, match recall), each K1
+   output of the counted run held against the plain version;
+13. phase "city" (Slice D2, BASELINE config 5's BA): the 1024-view city
+   scene's true tracks (C=1024, 5,885 points, 393,167 observations,
+   float32) through ``partitioned_bundle_adjust`` (16 blocks, 3 sweeps, 12
+   LM iterations) and the global CG ``bundle_adjust`` (36 iterations):
+   both lower the cost, the partitioned cost <= the initial, finite;
+   records the cost ratio, Cb, Pb, Sp, seconds per phase, syncs, peak
+   memory; then ``run_global_sfm`` on 256 of its views with ``ba_blocks=8``
+   on a "block" mesh: >= views - 1 edges, ATE < 2.0, > 500 points;
+14. phase "dist" (Slice D2): a world of one under NCCL: the sharded
+   dense-Schur solver (phase "ba"'s problem) and the CG solver on
+   observation shards equal their single-device runs within 1e-5, the
+   meshed partitioned solve equals phase "city"'s within 1e-6, batched
+   matching of 8 pairs equals ``match_descriptors``; records the
+   all-reduce ms of one LM iteration's payload;
+15. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -461,7 +479,7 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     if busy_ms == 0:
         log(f"{what} profile: device time not measured (no device events)")
-        return
+        return None
     events.sort(key=dev_us, reverse=True)
     log(f"{what} profile", json.dumps({
         "profiling_s": time.perf_counter() - t0,
@@ -469,6 +487,7 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top": [{"name": e.key[:80], "calls": e.count,
                  "device_ms": dev_us(e) / 1e3} for e in events[:top]]}))
+    return busy_ms
 
 
 def sampler_requested_bytes(maps, s_idx, ys) -> int:
@@ -1284,6 +1303,188 @@ def make_ring_scene(n_views: int, n_points: int, capacity: int,
     return kps, np.asarray(centers), K
 
 
+def _city_path(n_views: int):
+    """scripts/bench_city_scale_scene.py::_path: camera centres, yaws and
+    pitches of the boustrophedon street sweep (straight rows joined by
+    smooth turn arcs)."""
+    turn_views = 8
+    row_len = max(8, int(np.ceil(n_views / np.sqrt(n_views))))
+    centers, yaws, pitches = [], [], []
+    pos = np.array([0.0, 0.0, 0.0])
+    heading = 0.0
+    f = 0
+    while f < n_views:
+        for _ in range(row_len):
+            if f >= n_views:
+                break
+            d = np.array([np.sin(heading), 0.0, np.cos(heading)])
+            pos = pos + d
+            centers.append(pos.copy())
+            yaws.append(heading + 0.1 * np.sin(0.7 * f))
+            pitches.append(0.1 * np.sin(0.41 * f + 1.0))
+            f += 1
+        for _ in range(turn_views):
+            if f >= n_views:
+                break
+            heading += np.pi / turn_views
+            d = np.array([np.sin(heading), 0.0, np.cos(heading)])
+            pos = pos + 0.8 * d
+            centers.append(pos.copy())
+            yaws.append(heading)
+            pitches.append(0.1 * np.sin(0.41 * f + 1.0))
+            f += 1
+    return np.asarray(centers), np.asarray(yaws), np.asarray(pitches)
+
+
+def _city_rot(yaw: float, pitch: float) -> np.ndarray:
+    Ry = np.array([[np.cos(yaw), 0, -np.sin(yaw)], [0, 1, 0],
+                   [np.sin(yaw), 0, np.cos(yaw)]])
+    Rx = np.array([[1, 0, 0], [0, np.cos(pitch), -np.sin(pitch)],
+                   [0, np.sin(pitch), np.cos(pitch)]])
+    return Rx @ Ry
+
+
+def make_city_scene(n_views: int, capacity: int = 384, pts_per_seg: int = 36,
+                    noise: float = 0.3, seed: int = 3):
+    """scripts/bench_city_scale_scene.py::make_city_scene in numpy: facade
+    points ahead of each view of the street sweep, planted descriptors,
+    each view keeping its first ``capacity`` visible point ids with
+    ``noise`` px of pixel noise. Returns (per-view tuples of numpy
+    Keypoints fields, camera centres, K, per-view point ids, rotations)."""
+    rs = np.random.RandomState(seed)
+    centers, yaws, pitches = _city_path(n_views)
+    X = []
+    for f in range(n_views):
+        yaw = yaws[f]
+        d = np.array([np.sin(yaw), 0.0, np.cos(yaw)])
+        side = np.array([np.cos(yaw), 0.0, -np.sin(yaw)])
+        local = np.stack([
+            rs.uniform(-4, 4, pts_per_seg),
+            rs.uniform(-2.5, 2.5, pts_per_seg),
+            rs.uniform(2.0, 14.0, pts_per_seg),
+        ], axis=1)
+        X.append(centers[f][None] + local[:, 2:3] * d[None]
+                 + local[:, 0:1] * side[None]
+                 + local[:, 1:2] * np.array([0.0, 1.0, 0.0])[None])
+    X = np.concatenate(X)
+    desc = rs.normal(size=(len(X), 128))
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    K = np.array([[600.0, 0, 320.0], [0, 600.0, 240.0], [0, 0, 1.0]])
+    kps, ids, rots = [], [], []
+    for f in range(n_views):
+        R = _city_rot(yaws[f], pitches[f])
+        t = -R @ centers[f]
+        Xc = X @ R.T + t
+        vis = (Xc[:, 2] > 1.0) & (Xc[:, 2] < 16.0)
+        uv = Xc @ K.T
+        uv = uv[:, :2] / np.where(vis, Xc[:, 2], 1.0)[:, None]
+        inside = ((uv[:, 0] >= 0) & (uv[:, 0] < 640)
+                  & (uv[:, 1] >= 0) & (uv[:, 1] < 480))
+        idx = np.nonzero(vis & inside)[0][:capacity]
+        n = len(idx)
+        xy = np.zeros((capacity, 2), np.float32)
+        xy[:n] = uv[idx] + rs.normal(scale=noise, size=(n, 2))
+        dsc = np.zeros((capacity, 128), np.float32)
+        dsc[:n] = desc[idx]
+        mask = np.zeros(capacity, bool)
+        mask[:n] = True
+        kps.append((xy, np.full(capacity, 2.0, np.float32),
+                    np.zeros(capacity, np.float32), mask.astype(np.float32),
+                    dsc, mask))
+        ids.append(idx)
+        rots.append(R)
+    return kps, centers, K, X, ids, np.stack(rots)
+
+
+def city_pairs(centers, window: int = 3, radius: float = 7.0,
+               gap: int = 12, max_loop_per_view: int = 2):
+    """scripts/bench_city_scale_scene.py::proximity_pairs: sequential
+    window pairs + loop pairs between close, temporally distant views."""
+    V = len(centers)
+    pairs = []
+    for i in range(V):
+        for j in range(i + 1, min(i + 1 + window, V)):
+            pairs.append((i, j))
+        d = np.linalg.norm(centers[i + gap:] - centers[i], axis=1)
+        close = np.nonzero(d < radius)[0][:max_loop_per_view]
+        for c in close:
+            pairs.append((i, i + gap + int(c)))
+    return sorted(set(pairs))
+
+
+def city_ba_arrays(n_views: int, capacity: int = 384, seed: int = 0,
+                   rot_sigma: float = 0.002, trans_sigma: float = 0.02,
+                   point_sigma: float = 0.05) -> dict:
+    """BASELINE config 5's BA problem from the city scene's true tracks:
+    one observation per (view, kept point id) at the scene's noisy pixel
+    (0.3 px), every point seen by at least two views, the ground-truth
+    poses (angle-axis, world -> camera) and points perturbed from
+    ``seed``; view 0 fixed. Returns numpy arrays (float64)."""
+    from sara_tpu_torch.core import lie
+
+    kps, centers, K, X, ids, rots = make_city_scene(n_views, capacity)
+    cam = np.concatenate([np.full(len(i), f) for f, i in enumerate(ids)])
+    pid = np.concatenate(ids)
+    uv = np.concatenate([k[0][:len(i)] for k, i in zip(kps, ids)])
+    counts = np.bincount(pid, minlength=len(X))
+    tracked = np.nonzero(counts >= 2)[0]
+    local = np.full(len(X), -1, np.int64)
+    local[tracked] = np.arange(len(tracked))
+    keep = local[pid] >= 0
+    rs = np.random.RandomState(seed)
+    w = lie.so3_log(torch.from_numpy(rots)).numpy()
+    t = -np.einsum("vij,vj->vi", rots, centers)
+    poses = np.concatenate([w, t], axis=1)
+    poses[1:, :3] += rs.normal(scale=rot_sigma, size=(n_views - 1, 3))
+    poses[1:, 3:] += rs.normal(scale=trans_sigma, size=(n_views - 1, 3))
+    points = X[tracked] + rs.normal(scale=point_sigma,
+                                    size=(len(tracked), 3))
+    pose_fixed = np.zeros(n_views, bool)
+    pose_fixed[0] = True
+    return dict(poses=poses, points=points,
+                intrinsics=np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]]),
+                cam_idx=cam[keep].astype(np.int32),
+                pt_idx=local[pid[keep]].astype(np.int32),
+                uv=uv[keep].astype(np.float64),
+                obs_mask=np.ones(int(keep.sum()), bool),
+                pose_fixed=pose_fixed,
+                point_fixed=np.zeros(len(tracked), bool))
+
+
+def ring_rotations(n_views: int) -> np.ndarray:
+    """The world -> camera rotations of make_ring_scene's views."""
+    out = []
+    for f in range(n_views):
+        ang = 2 * np.pi * f / n_views
+        c = np.array([18.0 * np.cos(ang), 2.0 * np.sin(3 * ang),
+                      18.0 * np.sin(ang)])
+        z = -c / np.linalg.norm(c)
+        xax = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        xax /= np.linalg.norm(xax)
+        out.append(np.stack([xax, np.cross(z, xax), z]))
+    return np.stack(out)
+
+
+def edge_errors_deg(edges, edge_R, edge_t, R_gt, centers_gt) -> dict:
+    """Rotation and translation-direction errors (degrees) of the pair
+    stage's edges against the ground truth: median, max and the count
+    above 1 degree."""
+    rot, dirs = [], []
+    for (a, b), R, t in zip(edges, edge_R, edge_t):
+        Rr = R_gt[b] @ R_gt[a].T
+        c = np.clip((np.trace(Rr.T @ np.asarray(R)) - 1) / 2, -1, 1)
+        rot.append(np.degrees(np.arccos(c)))
+        tr = -R_gt[b] @ (centers_gt[b] - centers_gt[a])
+        tr /= np.linalg.norm(tr)
+        dirs.append(np.degrees(np.arccos(np.clip(
+            float(np.dot(tr, t / np.linalg.norm(t))), -1, 1))))
+    rot, dirs = np.asarray(rot), np.asarray(dirs)
+    return {"rot": [float(np.median(rot)), float(rot.max()),
+                    int((rot > 1).sum())],
+            "dir": [float(np.median(dirs)), float(dirs.max()),
+                    int((dirs > 1).sum())]}
+
+
 def phase_global_sfm(card: str, device="cuda", size=None, window: int = 4,
                      chunk: int = 32, samples: int = 256,
                      ba_iters: int = 40) -> dict:
@@ -1295,9 +1496,11 @@ def phase_global_sfm(card: str, device="cuda", size=None, window: int = 4,
     Gates: at least views - 1 edges, ATE <= 0.15 on the ring of radius 18,
     more than 500 points, the BA's final cost below its initial cost,
     everything finite. Records each stage's seconds, pairs/s and views/s,
-    and on the card the host syncs and ms of one relative pose of the pair
-    stage and a profile of stages 3-6 (averaging, polish, triangulation,
-    BA) run again on the same epipolar graph."""
+    and on the card the host syncs and ms of one chunk
+    of the batched pair stage (the first ``chunk`` pairs, their results
+    fetched in one transfer) and a profile of stages 3-6 (averaging,
+    polish, triangulation, BA) run again on the same epipolar graph.
+    """
     from sara_tpu_torch.ba import BAOptions
     from sara_tpu_torch.sfm import global_sfm as gs
     from sara_tpu_torch.utils import ate_rmse
@@ -1328,22 +1531,29 @@ def phase_global_sfm(card: str, device="cuda", size=None, window: int = 4,
            "pairs_per_s": len(pairs) / st["pair_stage"],
            "views_per_s": V / total,
            "ba_cost": [float(info["initial_cost"]),
-                       float(info["final_cost"])]}
+                       float(info["final_cost"])],
+           "ate_averaged": ate_rmse(res["centers_averaged"], centers_gt),
+           "ate_polished": ate_rmse(res["centers_polished"], centers_gt),
+           "edge_err_deg": edge_errors_deg(res["edges"], res["edge_R"],
+                                           res["edge_t"], ring_rotations(V),
+                                           centers_gt)}
     if dev.type == "cuda":
         stack = lambda name: torch.stack([getattr(k, name)   # noqa: E731
                                           for k in kps])
         xy, desc, msk = stack("xy"), stack("descriptors"), stack("mask")
         gen = torch.Generator(device=dev).manual_seed(0)
         Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        first = pairs[:chunk]
 
-        def one_pair():
+        def one_chunk():
             return fetch(*gs._pair_chunk_program(
-                xy, desc, msk, [0], [1], gen, Kt, cfg.match_ratio,
-                cfg.rel_pose_threshold_px, cfg.rel_pose_samples,
-                cfg.min_pair_inliers))
+                xy, desc, msk, [p[0] for p in first], [p[1] for p in first],
+                gen, Kt, cfg.match_ratio, cfg.rel_pose_threshold_px,
+                cfg.rel_pose_samples, cfg.min_pair_inliers))
 
-        out["one_pair_ms"] = timed_call_ms(one_pair, dev)
-        out["one_pair_syncs"] = count_syncs(one_pair)
+        out["chunk_pairs"] = len(first)
+        out["chunk_ms"] = timed_call_ms(one_chunk, dev)
+        out["chunk_syncs"] = count_syncs(one_chunk)
         xy_host = fetch(*[k.xy for k in kps])
 
         def stages():
@@ -1368,6 +1578,356 @@ def phase_global_sfm(card: str, device="cuda", size=None, window: int = 4,
     if dev.type == "cuda":
         profile_frame(stages, out["stages_3_6_ms"], top=15,
                       what="global sfm stages 3-6")
+    return out
+
+
+def phase_low_precision(ps, card: str) -> tuple:
+    """F2: the frontend's two branches on the 480x640 frame pair of phase
+    4: float32 orientation maps at stride 1 (the default) against bfloat16
+    maps at stride 2 (``SIFTParams(low_precision=True)``). For each: the
+    frontend ms per frame (median of 5 after a warm-up), the device's busy
+    ms (a profile), K1's launches by variant and dtype path, K1's summed
+    device ms over frame A's launches, the matches and their recall on the
+    16-px shift (on-shift matches over A's keypoints whose shifted
+    position lies in B). Every K1 output of the counted run is held
+    against the plain version on the same card tensors (max abs error
+    <= TOLERANCE). Gates: both branches give finite keypoints and >= 90%
+    on-shift precision; every K1 launch is the vector variant. Returns
+    (the record, K1's launches in both runs, K1's worst error)."""
+    from sara_tpu_torch.features import api
+    from sara_tpu_torch.matching.brute_force import (MatchParams,
+                                                     match_descriptors)
+
+    h, w = FRAME_HW
+    tex = texture(1, h, w + SHIFT_PX)
+    frame_a, frame_b = tex[:, SHIFT_PX:], tex[:, :w]
+    out = {}
+    wrapper = ps.sample_field_patches
+    for name, low in (("f32_ds1", False), ("bf16_ds2", True)):
+        params = api.SIFTParams(desc_sampler="kernel",
+                                desc_sample_nearest=False, low_precision=low)
+        api.compute_sift_keypoints(frame_a, params)            # warm-up
+        torch.cuda.synchronize()
+        recorded = []
+
+        def recording(*args, **kwargs):
+            result = wrapper(*args, **kwargs)
+            recorded.append((args, kwargs, result))
+            return result
+
+        ps.sample_field_patches = recording
+        try:
+            ps.reset_counts()
+            ka = api.compute_sift_keypoints(frame_a, params)
+            kb = api.compute_sift_keypoints(frame_b, params)
+            m = match_descriptors(ka, kb, MatchParams(ratio=0.8))
+            torch.cuda.synchronize()
+            counts = ps.counts()
+        finally:
+            ps.sample_field_patches = wrapper
+        errs = []
+        for (maps, s_idx, ys, xs), _, got in recorded:
+            ref = ps._sample_patches_reference(maps, s_idx, ys, xs)
+            check(got.shape == ref.shape,
+                  f"low precision {name}: shape {tuple(got.shape)}")
+            errs.append((got - ref).abs().max().item())
+        shapes = sorted({tuple(a[0].shape) for a, _, _ in recorded})
+        log(f"K1 vector vs plain [low precision {name}] {len(errs)} calls "
+            f"on {shapes}: max_abs_err={max(errs):.3e}")
+        check(max(errs) <= TOLERANCE,
+              f"low precision {name}: K1 vs plain {max(errs)}")
+        frame_ms = timed_call_ms(
+            lambda: api.compute_sift_keypoints(frame_a, params),
+            torch.device("cuda"))
+        busy = profile_frame(
+            lambda: api.compute_sift_keypoints(frame_a, params),
+            frame_ms, top=8, what=f"frontend {name}")
+        k1_ms = sum(timed_ms(lambda a=a, k=k: ps.sample_field_patches(
+            *a, **k)) for a, k, _ in recorded[:len(recorded) // 2])
+        n_match = int(m.count())
+        i, j = m.i[m.mask].long(), m.j[m.mask].long()
+        d = kb.xy[j] - ka.xy[i]
+        on = int((((d[:, 0] - SHIFT_PX).abs() <= 1)
+                  & (d[:, 1].abs() <= 1)).sum())
+        present = int((ka.mask & (ka.xy[:, 0] + SHIFT_PX <= w - 1)).sum())
+        out[name] = {
+            "maps_dtype": str(recorded[0][0][0].dtype),
+            "frame_ms": frame_ms, "busy_ms": busy,
+            "keypoints": [int(ka.count()), int(kb.count())],
+            "matches": n_match, "on_shift": on,
+            "precision": on / max(n_match, 1),
+            "recall": on / max(present, 1),
+            "k1_launches": counts, "k1_frame_ms": k1_ms,
+            "k1_max_abs_err": max(errs)}
+        check(bool(torch.isfinite(ka.descriptors).all()
+                   and torch.isfinite(ka.xy).all()),
+              f"low precision {name}: non-finite keypoints")
+        check(on >= 0.9 * n_match and n_match >= 100,
+              f"low precision {name}: {on} of {n_match} on the shift")
+        check(counts["K1"] == len(recorded) and counts["K1 general"] == 0,
+              f"low precision {name}: K1 counts {counts}")
+    check(out["bf16_ds2"]["maps_dtype"] == "torch.bfloat16"
+          and out["f32_ds1"]["maps_dtype"] == "torch.float32",
+          f"low precision: map dtypes {out}")
+    log("low_precision", json.dumps(out), f"({card})")
+    return (out, sum(out[b]["k1_launches"]["K1"] for b in out),
+            max(out[b]["k1_max_abs_err"] for b in out))
+
+
+CITY_SIZE = dict(n_views=1024, capacity=384)   # scripts/bench_city_scale.py
+CITY_BA = dict(blocks=16, sweeps=3, iters=12, global_iters=36)
+CITY_SFM_VIEWS = 256
+
+
+def _problem_on(arrays: dict, device, dtype=torch.float32):
+    """A port BAProblem on ``device`` from numpy arrays."""
+    from sara_tpu_torch.ba import BAProblem
+
+    f = lambda k: torch.as_tensor(arrays[k], dtype=dtype).to(device)  # noqa
+    t = lambda k: torch.as_tensor(arrays[k]).to(device)              # noqa
+    return BAProblem(poses=f("poses"), points=f("points"),
+                     intrinsics=f("intrinsics"), cam_idx=t("cam_idx"),
+                     pt_idx=t("pt_idx"), uv=f("uv"), obs_mask=t("obs_mask"),
+                     pose_fixed=t("pose_fixed"),
+                     point_fixed=t("point_fixed"))
+
+
+def phase_city(card: str, device="cuda", size=None, ba=None,
+               sfm_views: int = CITY_SFM_VIEWS) -> dict:
+    """BASELINE config 5's BA at scripts/bench_city_scale.py's defaults: the
+    city scene (1024 views, capacity 384) in numpy, its true tracks as a BA
+    problem (poses and points perturbed from seed 0, the scene's 0.3 px
+    noise kept), float32, through ``partitioned_bundle_adjust`` (16 blocks,
+    3 sweeps, 12 LM iterations) and the global ``bundle_adjust`` (C > 512:
+    the CG path) at 36 LM iterations. Gates: both lower the cost, the
+    partitioned cost is at most the initial one, every output finite.
+    Records the ratio of the partitioned cost to the global one (the
+    reference's target: 1.3), Cb, Pb, Sp, the point chunk, seconds per
+    phase and per sweep, syncs of one phase, peak memory. Then
+    ``run_global_sfm`` on ``sfm_views`` views of the scene with
+    ``ba_blocks=8, ba_sweeps=3`` and a "block" mesh (a world of one:
+    NCCL on the card): edges, ATE, points, stage seconds.
+    Returns the problem and the partitioned result for phase "dist"."""
+    from sara_tpu_torch.ba import BAOptions, ba_cost, bundle_adjust
+    from sara_tpu_torch.ba import partitioned as part
+    from sara_tpu_torch.core.types import Keypoints
+    from sara_tpu_torch.parallel import make_mesh
+    from sara_tpu_torch.sfm import global_sfm as gs
+    from sara_tpu_torch.utils import ate_rmse
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    size = size or CITY_SIZE
+    ba = ba or CITY_BA
+    t0 = time.perf_counter()
+    arrays = city_ba_arrays(**size)
+    prob = _problem_on(arrays, dev)
+    out = {"size": size, "ba": ba, "cameras": len(arrays["poses"]),
+           "points": len(arrays["points"]),
+           "observations": len(arrays["uv"]),
+           "max_track": int(np.bincount(arrays["pt_idx"]).max()),
+           "build_s": time.perf_counter() - t0}
+    plan = part.plan_blocks(prob, ba["blocks"])
+    out["Cb"], out["Pb"] = plan.cam_local.shape[1], plan.pt_local.shape[1]
+    cam_blk = plan.block_of_cam[arrays["cam_idx"]]
+    pt_blk = plan.block_of_pt[arrays["pt_idx"]]
+    out["block_cameras"] = [int(len(np.union1d(
+        np.nonzero(plan.block_of_cam == b)[0],
+        arrays["cam_idx"][(cam_blk == b) | (pt_blk == b)])))
+        for b in range(ba["blocks"])]
+    out["block_points"] = [int(v.sum()) for v in plan.pt_valid]
+    opts = BAOptions(max_iters=ba["iters"])
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    pres, pinfo = part.partitioned_bundle_adjust(prob, ba["blocks"], opts,
+                                                 sweeps=ba["sweeps"])
+    sync()
+    out["partitioned_s"] = time.perf_counter() - t0
+    out["Sp"], out["chunk"] = pinfo["sp"], pinfo["chunk"]
+    out["phase_s"] = pinfo["phase_s"]
+    n_ph = len(pinfo["phase_s"]) // ba["sweeps"]
+    out["sweep_s"] = [sum(pinfo["phase_s"][k * n_ph:(k + 1) * n_ph])
+                      for k in range(ba["sweeps"])]
+    if cuda:
+        out["partitioned_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                       / 2 ** 30)
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    gres, ginfo = bundle_adjust(prob, BAOptions(max_iters=ba["global_iters"]))
+    sync()
+    out["global_s"] = time.perf_counter() - t0
+    if cuda:
+        out["global_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["syncs_one_phase"] = count_syncs(
+            lambda: part.partitioned_bundle_adjust(
+                prob, 2, BAOptions(max_iters=1), sweeps=1))
+    c0, cp, cg = (float(ba_cost(p, 4.0, 6.0)) for p in (prob, pres, gres))
+    out.update(initial_cost=c0, partitioned_cost=cp, global_cost=cg,
+               ratio_to_global=cp / cg,
+               global_info=[float(ginfo["initial_cost"]),
+                            float(ginfo["final_cost"])],
+               partitioned_info=[float(pinfo["initial_cost"]),
+                                 float(pinfo["final_cost"])])
+    log("city ba", json.dumps(out), f"({card})")
+    check(cp <= c0 and cp < c0, f"city: partitioned cost {cp} vs {c0}")
+    check(out["global_info"][1] < out["global_info"][0],
+          f"city: global cost {out['global_info']}")
+    for name, p in (("partitioned", pres), ("global", gres)):
+        check(bool(torch.isfinite(p.poses).all()
+                   and torch.isfinite(p.points).all()),
+              f"city: non-finite {name} result")
+
+    # The whole pipeline on the first sfm_views views of the scene.
+    kps_np, centers_gt, K, _, _, _ = make_city_scene(sfm_views,
+                                                     size["capacity"])
+    kps = [Keypoints(*(torch.from_numpy(a).to(dev) for a in k))
+           for k in kps_np]
+    pairs = city_pairs(centers_gt)
+    cfg = gs.GlobalSfMConfig(rel_pose_samples=192, min_pair_inliers=20,
+                             pair_chunk=32,
+                             ba_options=BAOptions(max_iters=ba["iters"]),
+                             ba_blocks=8, ba_sweeps=3)
+    sync()
+    t0 = time.perf_counter()
+    res = gs.run_global_sfm(kps, K, pairs=pairs, config=cfg,
+                            ba_mesh=make_mesh(axis="block", device=dev),
+                            device=dev)
+    total = time.perf_counter() - t0
+    V = sfm_views
+    centers = np.stack([-res["R"][v].T @ res["t"][v] for v in range(V)])
+    sfm = {"views": V, "pairs": len(pairs), "edges": res["num_edges"],
+           "points": len(res["points"]), "observations": res["n_obs"],
+           "ate": ate_rmse(centers, centers_gt),
+           "path_length": float(np.linalg.norm(
+               np.diff(centers_gt, axis=0), axis=1).sum()),
+           "total_s": total, "stage_s": res["stage_times"],
+           "pairs_per_s": len(pairs) / res["stage_times"]["pair_stage"],
+           "ba_cost": [float(res["ba_info"]["initial_cost"]),
+                       float(res["ba_info"]["final_cost"])]}
+    out["global_sfm"] = sfm
+    log("city global_sfm", json.dumps(sfm), f"({card})")
+    check(res["num_edges"] >= V - 1, f"city sfm: {res['num_edges']} edges")
+    check(bool(np.isfinite(res["R"]).all() and np.isfinite(res["t"]).all()
+               and np.isfinite(res["points"]).all()),
+          "city sfm: non-finite output")
+    check(sfm["ate"] < 2.0 and sfm["points"] > 500,
+          f"city sfm: ATE {sfm['ate']}, {sfm['points']} points")
+    return out, prob, pres
+
+
+def phase_dist(card: str, city_prob, city_part, frames, device="cuda",
+               size=None, iters: int = 10) -> dict:
+    """Slice D2's distributed solvers on a world of one under NCCL on the
+    card (one H100 gives one rank; no scaling across GPUs is measured).
+    ``dense_schur_bundle_adjust_sharded`` on phase "ba"'s problem (C=256,
+    P=100k, O=800k, float32, ``iters`` LM iterations) against the
+    unsharded loop on the same packing: costs within 1e-5 relative.
+    ``distributed_bundle_adjust(solver="cg")`` against
+    ``bundle_adjust_cg``: final costs within 1e-5 relative.
+    ``partitioned_bundle_adjust(mesh=...)`` on phase "city"'s problem
+    against its unmeshed result: equal within 1e-6 relative.
+    ``batched_match_pairs`` on 8 descriptor-set pairs cut from the frame
+    pair against ``match_descriptors`` pair by pair: equal matches.
+    Records the NCCL all-reduce ms of one LM iteration's payload and ms
+    per iteration of each solver."""
+    import torch.distributed as dist
+
+    from sara_tpu_torch.ba import BAOptions, bundle_adjust_cg
+    from sara_tpu_torch.ba import dense_schur, partitioned as part
+    from sara_tpu_torch.core.types import Keypoints
+    from sara_tpu_torch.matching.brute_force import (MatchParams,
+                                                     match_descriptors)
+    from sara_tpu_torch.parallel import (batched_match_pairs,
+                                         distributed_bundle_adjust,
+                                         make_mesh)
+
+    dev = torch.device(device)
+    mesh = make_mesh(device=dev)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    check(out["backend"] == ("nccl" if dev.type == "cuda" else "gloo")
+          and out["world"] == 1, f"dist: process group {out}")
+    prob = make_ba_problem(**(size or BA_SIZE), device=dev)
+    opts = BAOptions(max_iters=iters)
+    ptm, stats = dense_schur.pack_pt_major(
+        prob, chunk=min(opts.dense_chunk, max(64, prob.points.shape[0])))
+    Q = stats["chunk"]
+    dense_schur.dense_schur_bundle_adjust(ptm, BAOptions(max_iters=1), Q)
+    (_, _, ref), ref_ms = events_ms(
+        lambda: dense_schur.dense_schur_bundle_adjust(ptm, opts, Q), dev)
+    (_, _, sh), sh_ms = events_ms(
+        lambda: dense_schur.dense_schur_bundle_adjust_sharded(
+            ptm, mesh, opts, Q), dev)
+    rc, sc = ref["costs"].double(), sh["costs"].double()
+    out["dense"] = {"ms_per_iter": ref_ms / iters,
+                    "sharded_ms_per_iter": sh_ms / iters,
+                    "final_cost": [float(ref["final_cost"]),
+                                   float(sh["final_cost"])],
+                    "max_rel_cost_diff": float(((sc - rc).abs()
+                                                / rc.abs()).max())}
+    cg_opts = BAOptions(max_iters=iters, cg_iters=15, solver="cg")
+    (_, ci), cg_ms = events_ms(lambda: bundle_adjust_cg(prob, cg_opts), dev)
+    (_, di), dcg_ms = events_ms(
+        lambda: distributed_bundle_adjust(prob, mesh, cg_opts), dev)
+    out["cg"] = {"ms_per_iter": cg_ms / iters,
+                 "sharded_ms_per_iter": dcg_ms / iters,
+                 "final_cost": [float(ci["final_cost"]),
+                                float(di["final_cost"])]}
+    out["cg"]["rel_diff"] = (abs(out["cg"]["final_cost"][1]
+                                 - out["cg"]["final_cost"][0])
+                             / out["cg"]["final_cost"][0])
+    # The all-reduce payload of one dense LM iteration.
+    C = prob.poses.shape[0]
+    payload = [torch.randn(n, device=dev) for n in
+               ((6 * C) ** 2, 42 * C, 6 * C, 1, 1)]
+    out["allreduce_ms_per_iter"] = timed_ms(
+        lambda: [dist.all_reduce(x, group=mesh.get_group()) for x in payload]
+    ) if dev.type == "cuda" else None
+    out["allreduce_mb_per_iter"] = sum(x.numel() for x in payload) * 4 / 1e6
+
+    # The partitioned solve with its blocks on the mesh.
+    blk = make_mesh(device=dev, axis="block")
+    t0 = time.perf_counter()
+    meshed, _ = part.partitioned_bundle_adjust(
+        city_prob, CITY_BA["blocks"], BAOptions(max_iters=CITY_BA["iters"]),
+        sweeps=CITY_BA["sweeps"], mesh=blk)
+    out["partitioned_mesh_s"] = time.perf_counter() - t0
+    diff = max(float((meshed.poses - city_part.poses).abs().max()
+                     / city_part.poses.abs().max()),
+               float((meshed.points - city_part.points).abs().max()
+                     / city_part.points.abs().max()))
+    out["partitioned_mesh_rel_diff"] = diff
+
+    # Batched matching: 8 pairs of 1024-row descriptor sets.
+    ka, kb = frames[0], frames[1]
+    B = 8
+    da = ka.descriptors.reshape(B, -1, 128)
+    db = kb.descriptors.reshape(B, -1, 128)
+    ma, mb = ka.mask.reshape(B, -1), kb.mask.reshape(B, -1)
+    j, ok, _ = batched_match_pairs(da, ma, db, mb, mesh, ratio=0.8)
+    same = 0
+    for b in range(B):
+        n = da.shape[1]
+        z = torch.zeros(n, device=dev)
+        m = match_descriptors(Keypoints(z[:, None].expand(n, 2), z, z, z,
+                                        da[b], ma[b]),
+                              Keypoints(z[:, None].expand(n, 2), z, z, z,
+                                        db[b], mb[b]),
+                              MatchParams(ratio=0.8), device=dev)
+        same += int(torch.equal(m.mask, ok[b]) and torch.equal(
+            torch.where(m.mask, m.j, -1), torch.where(ok[b], j[b], -1)))
+    out["match_pairs_equal"] = same
+    out["match_count"] = int(ok.sum())
+    log("dist", json.dumps(out), f"({card})")
+    check(out["dense"]["max_rel_cost_diff"] <= 1e-5,
+          f"dist: sharded dense costs {out['dense']}")
+    check(out["cg"]["rel_diff"] <= 1e-5, f"dist: sharded CG {out['cg']}")
+    check(diff <= 1e-6, f"dist: meshed partitioned differs by {diff}")
+    check(same == B and out["match_count"] > 0,
+          f"dist: batched matching equal on {same} of {B} pairs")
     return out
 
 
@@ -1400,12 +1960,19 @@ def main() -> int:
         "pack_x", phase_packed_path, ps, recorded)
     rows = timed("K1 timing", phase_timing, ps, recorded)
     rows_k2 = timed("K2 timing", phase_timing, ps, recorded, packed=True)
+    _, lp_launches, lp_err = timed("low precision", phase_low_precision, ps,
+                                   card)
     timed("K1 vs K2", compare_k1_k2, ps, recorded)
     timed("two-view", phase_two_view, frames, card)
     vo = timed("vo", phase_vo, ps, card)
     timed("ba", phase_ba, card)
     loop = timed("loop", phase_loop, ps, card)
     timed("global_sfm", phase_global_sfm, card)
+    city, city_prob, city_part = timed("city", phase_city, card)
+    timed("dist", phase_dist, card, city_prob, city_part, frames)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
     check(not any(m.split(".")[0] in ("jax", "sara_tpu")
                   for m in sys.modules), "JAX or sara_tpu was imported")
 
@@ -1437,10 +2004,11 @@ def main() -> int:
     kernels = [
         entry("patch_sampler", "K1", "sara_tpu/ops/patch_sampler.py:170",
               rows, launches + k1_on_k2_path + vo["sampler_counts"]["K1"]
-              + loop["sampler_counts"]["K1"],
-              0.0, "frame: the 6 launches of one 480x640 frame, summed",
+              + loop["sampler_counts"]["K1"] + lp_launches,
+              lp_err, "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
                                 "pack_x": k1_on_k2_path,
+                                "low_precision": lp_launches,
                                 "vo": vo["sampler_counts"]["K1"],
                                 "loop": loop["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",

@@ -8,8 +8,9 @@ Hopper (``ops/csrc``), with a plain PyTorch version beside it.
 
 Ported so far: the SIFT frontend and the brute-force matcher (Slice A),
 two-view geometry (Slice B), monocular visual odometry with bundle
-adjustment (Slice C), loop closure and global SfM (Slice D1) and
-checkpoints (Slice D3).
+adjustment (Slice C), loop closure and global SfM (Slice D1), the
+partitioned and distributed bundle adjusters (Slice D2) and checkpoints
+(Slice D3).
 
 core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3),
           camera models (pinhole, Brown-Conrady, Kannala-Brandt, omni)
@@ -19,14 +20,17 @@ features  DoG detection, orientation, field SIFT descriptors, the pipeline
 matching  brute-force GEMM matcher (ratio test + mutual check)
 mvg       minimal solvers (4/5/7/8-point, P3P), two-view geometry
 ransac    batched RANSAC, ORSA and the H / F / E + pose / PnP estimators
-ba        LM bundle adjustment: dense-Schur and matrix-free Schur + PCG
+ba        LM bundle adjustment: dense-Schur and matrix-free Schur + PCG,
+          keyframe/map-block partitioned BA
 sfm       union-find (native C++), feature tracks, pose graph, point cloud,
           the odometry pipeline, SE(3)/Sim(3) pose-graph optimization,
           loop closure (VLAD retrieval, metric loop edges), rotation
           averaging, edge scales, the global SfM pipeline
+parallel  device meshes on torch.distributed (NCCL on the card, gloo on
+          the CPU), sharded BA, batched matching over pairs
 io        checkpoint / resume of the odometry state
 utils     trajectory metrics (Umeyama alignment, ATE), host transfers,
-          logging
+          logging, roofline estimates
 viz       the self-contained HTML point-cloud viewer
 ops       top-k, small-matrix algebra and the CUDA patch-sampler kernels
 convert   carries parameters, keypoints, BA and pose-graph problems over

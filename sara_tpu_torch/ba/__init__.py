@@ -1,5 +1,5 @@
 """Bundle adjustment: Levenberg-Marquardt + Schur complement (twin of
-``sara_tpu/ba``; the multi-device solvers are not ported yet)."""
+``sara_tpu/ba``; the partitioned solver is ``ba/partitioned.py``)."""
 
 from sara_tpu_torch.ba.core import (
     BAProblem, BAOptions, bundle_adjust, bundle_adjust_cg, ba_cost,

@@ -218,16 +218,26 @@ def _jacobians_closed_form(p: BAProblem, delta: float,
     return r, Jc, Jp
 
 
-def _gauss_newton_blocks(p: BAProblem, r, Jc, Jp):
+def _identity(x):
+    return x
+
+
+def _gauss_newton_blocks(p: BAProblem, r, Jc, Jp, allreduce=_identity):
     """Block operators of the (undamped) normal equations: U (C, 6, 6),
-    V (P, 3, 3), per-observation W (O, 6, 3), bc (C, 6), bp (P, 3)."""
+    V (P, 3, 3), per-observation W (O, 6, 3), bc (C, 6), bp (P, 3).
+    ``allreduce`` sums the observation sums over observation shards (see
+    :func:`_lm_cg`)."""
     C = p.poses.shape[0]
     P = p.points.shape[0]
-    U = _segment_sum(torch.einsum("oia,oib->oab", Jc, Jc), p.cam_idx, C)
-    V = _segment_sum(torch.einsum("oia,oib->oab", Jp, Jp), p.pt_idx, P)
+    U = allreduce(_segment_sum(torch.einsum("oia,oib->oab", Jc, Jc),
+                               p.cam_idx, C))
+    V = allreduce(_segment_sum(torch.einsum("oia,oib->oab", Jp, Jp),
+                               p.pt_idx, P))
     Wo = torch.einsum("oia,oib->oab", Jc, Jp)
-    bc = -_segment_sum(torch.einsum("oia,oi->oa", Jc, r), p.cam_idx, C)
-    bp = -_segment_sum(torch.einsum("oia,oi->oa", Jp, r), p.pt_idx, P)
+    bc = -allreduce(_segment_sum(torch.einsum("oia,oi->oa", Jc, r),
+                                 p.cam_idx, C))
+    bp = -allreduce(_segment_sum(torch.einsum("oia,oi->oa", Jp, r),
+                                 p.pt_idx, P))
     return U, V, Wo, bc, bp
 
 
@@ -237,14 +247,15 @@ def _damp(M, lam):
     return M + lam * (M * d) + 1e-8 * d
 
 
-def _schur_matvec(x, U_d, Vinv, Wo, cam_idx, pt_idx, C, P):
+def _schur_matvec(x, U_d, Vinv, Wo, cam_idx, pt_idx, C, P,
+                  allreduce=_identity):
     """S x = U_d x - W V^-1 W^T x, matrix-free over observations."""
     Ux = torch.einsum("cab,cb->ca", U_d, x)
     WT_x = torch.einsum("oab,oa->ob", Wo, x[cam_idx])          # (O, 3)
-    VWT_x = _segment_sum(WT_x, pt_idx, P)                       # (P, 3)
+    VWT_x = allreduce(_segment_sum(WT_x, pt_idx, P))            # (P, 3)
     y = torch.einsum("pab,pb->pa", Vinv, VWT_x)                 # (P, 3)
     Wy = torch.einsum("oab,ob->oa", Wo, y[pt_idx])              # (O, 6)
-    return Ux - _segment_sum(Wy, cam_idx, C)
+    return Ux - allreduce(_segment_sum(Wy, cam_idx, C))
 
 
 def _tiny(x):
@@ -288,7 +299,8 @@ def _pcg_tree(matvec, b, precond, iters: int):
     return x
 
 
-def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions):
+def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions,
+              allreduce=_identity):
     """One damped normal-equation solve.
 
     Returns (dpose (C,6), dpoint (P,3), dintr (Ki,) or None). With
@@ -296,7 +308,8 @@ def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions):
     system as one extra global block."""
     C = p.poses.shape[0]
     P = p.points.shape[0]
-    U, V, Wo, bc, bp = _gauss_newton_blocks(p, r, Jc, Jp)
+    red = allreduce
+    U, V, Wo, bc, bp = _gauss_newton_blocks(p, r, Jc, Jp, red)
     U_d = _damp(U, lam)
     V_d = _damp(V, lam)
     Vinv = batched_inv(V_d)
@@ -307,9 +320,9 @@ def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions):
     if Ji is None:
         # Classic path: cameras only in the reduced system.
         Wv = torch.einsum("oab,ob->oa", Wo, Vb[pt_idx])
-        rhs = bc - _segment_sum(Wv, cam_idx, C)
+        rhs = bc - red(_segment_sum(Wv, cam_idx, C))
         matvec = lambda x: _schur_matvec(x, U_d, Vinv, Wo,      # noqa: E731
-                                         cam_idx, pt_idx, C, P)
+                                         cam_idx, pt_idx, C, P, red)
         dc = _pcg(matvec, rhs, Uinv, opts.cg_iters)
         WTdc = torch.einsum("oab,oa->ob", Wo, dc[cam_idx])
         di = None
@@ -317,31 +330,31 @@ def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions):
         Ki = p.intrinsics.shape[0]
         O = Ji.shape[0]
         Wi = torch.einsum("oia,oib->oab", Ji, Jp)              # (O, Ki, 3)
-        U_ii = torch.einsum("oia,oib->ab", Ji, Ji)
-        U_ci = _segment_sum(torch.einsum("oia,oib->oab", Jc, Ji),
-                            cam_idx, C)                         # (C, 6, Ki)
-        bi = -torch.einsum("oia,oi->a", Ji, r)
+        U_ii = red(torch.einsum("oia,oib->ab", Ji, Ji))
+        U_ci = red(_segment_sum(torch.einsum("oia,oib->oab", Jc, Ji),
+                                cam_idx, C))                    # (C, 6, Ki)
+        bi = -red(torch.einsum("oia,oi->a", Ji, r))
         U_ii_d = _damp(U_ii, lam)
         U_ii_inv = torch.linalg.inv_ex(U_ii_d)[0]
 
-        rhs_c = bc - _segment_sum(
-            torch.einsum("oab,ob->oa", Wo, Vb[pt_idx]), cam_idx, C)
-        rhs_i = bi - torch.einsum("oab,ob->a", Wi, Vb[pt_idx])
+        rhs_c = bc - red(_segment_sum(
+            torch.einsum("oab,ob->oa", Wo, Vb[pt_idx]), cam_idx, C))
+        rhs_i = bi - red(torch.einsum("oab,ob->a", Wi, Vb[pt_idx]))
 
         def matvec(x):
             xc, xi = x
             tp = (torch.einsum("oab,oa->ob", Wo, xc[cam_idx])
                   + torch.einsum("oab,oa->ob", Wi, xi.expand(O, Ki)))
             yp = torch.einsum("pab,pb->pa", Vinv,
-                              _segment_sum(tp, pt_idx, P))
+                              red(_segment_sum(tp, pt_idx, P)))
             out_c = (torch.einsum("cab,cb->ca", U_d, xc)
                      + torch.einsum("cak,k->ca", U_ci, xi)
-                     - _segment_sum(
+                     - red(_segment_sum(
                          torch.einsum("oab,ob->oa", Wo, yp[pt_idx]),
-                         cam_idx, C))
+                         cam_idx, C)))
             out_i = (torch.einsum("cak,ca->k", U_ci, xc)
                      + U_ii_d @ xi
-                     - torch.einsum("oab,ob->a", Wi, yp[pt_idx]))
+                     - red(torch.einsum("oab,ob->a", Wi, yp[pt_idx])))
             return out_c, out_i
 
         precond = lambda v: (torch.einsum("cab,cb->ca", Uinv, v[0]),  # noqa: E731
@@ -352,7 +365,7 @@ def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions):
                 + torch.einsum("oab,oa->ob", Wi, di.expand(O, Ki)))
 
     # Back-substitute points: dp = V^-1 (bp - W^T dc).
-    WTdc_p = _segment_sum(WTdc, pt_idx, P)
+    WTdc_p = red(_segment_sum(WTdc, pt_idx, P))
     dp = torch.einsum("pab,pb->pa", Vinv, bp - WTdc_p)
     dc = dc * _pose_free(p)
     dp = torch.where(p.point_fixed[:, None], torch.zeros_like(dp), dp)
@@ -400,10 +413,20 @@ def bundle_adjust(p: BAProblem, opts: BAOptions = BAOptions()):
 
 def bundle_adjust_cg(p: BAProblem, opts: BAOptions = BAOptions()):
     """Matrix-free Schur+PCG LM loop. Returns (problem, info dict)."""
+    return _lm_cg(p, opts)
+
+
+def _lm_cg(p: BAProblem, opts: BAOptions, allreduce=_identity):
+    """The LM loop of :func:`bundle_adjust_cg`. ``allreduce`` sums every
+    sum over observations across observation shards (identity on one
+    device; ``parallel/dist_ba.py`` passes a ``torch.distributed``
+    all-reduce, with cameras, points and intrinsics replicated on every
+    rank): the cost, the segment sums of the normal equations and those
+    inside each CG matvec, so every rank takes the same steps."""
     fast = p.intr_free is None and p.intrinsics.shape[0] == 4
     delta, cutoff = opts.huber_delta, opts.outlier_cutoff
     prob = p
-    cost = ba_cost(p, delta, cutoff)
+    cost = allreduce(ba_cost(p, delta, cutoff))
     cost0 = cost
     lam = torch.full((), opts.lambda_init, dtype=p.poses.dtype,
                      device=p.poses.device)
@@ -414,12 +437,12 @@ def bundle_adjust_cg(p: BAProblem, opts: BAOptions = BAOptions()):
             Ji = None
         else:
             r, Jc, Jp, Ji = _jacobians(prob, delta, cutoff)
-        dc, dp, di = _solve_lm(prob, r, Jc, Jp, Ji, lam, opts)
+        dc, dp, di = _solve_lm(prob, r, Jc, Jp, Ji, lam, opts, allreduce)
         cand = prob._replace(poses=prob.poses + dc,
                              points=prob.points + dp)
         if di is not None:
             cand = cand._replace(intrinsics=prob.intrinsics + di)
-        new_cost = ba_cost(cand, delta, cutoff)
+        new_cost = allreduce(ba_cost(cand, delta, cutoff))
         accept = new_cost < cost
         prob = prob._replace(
             poses=torch.where(accept, cand.poses, prob.poses),

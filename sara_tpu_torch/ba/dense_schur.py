@@ -35,8 +35,9 @@ accept/reject stays in the problem's dtype.
 The reference's chunk ``lax.scan``s are loops over the (nc, Q) reshape of
 the point axis; the LM ``lax.scan`` is a loop whose accept/reject and
 lambda schedule are ``torch.where`` selects (no host reads inside).
-``dense_schur_bundle_adjust_sharded`` (the multi-device variant) is not
-ported yet.
+:func:`dense_schur_bundle_adjust_sharded` runs the same loop on point
+shards over a ``torch.distributed`` device mesh (the reference's
+``shard_map`` with a ``psum``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from sara_tpu_torch.ba.core import _identity
 from sara_tpu_torch.ba.jacobian import (pinhole_jacobians_gathered,
                                         pinhole_residuals_gathered)
 from sara_tpu_torch.utils.host import fetch, put
@@ -441,9 +443,17 @@ def _solve_cameras(Ucat, S_pt, rhs_pt, lam, pose_free):
             .reshape(6, C).T * pose_free)
 
 
-def _lm_loop(strata, opts, Qs):
+def _lm_loop(strata, opts, Qs, allreduce=_identity):
     """The LM loop over one or more point STRATA (each a PtMajorBA with its
-    own Sp/chunk; poses/intrinsics/pose_free are shared)."""
+    own Sp/chunk; poses/intrinsics/pose_free are shared).
+
+    ``allreduce`` combines the per-shard camera-system accumulators and the
+    cost (identity on one device; a ``torch.distributed`` all-reduce over
+    point shards in :func:`dense_schur_bundle_adjust_sharded`): (6C)^2 +
+    42 C + 6 C floats and two scalars per iteration. Accumulators are
+    summed out of place, so ``torch.func.vmap`` over a leading block axis
+    (``ba/partitioned.py``) runs the same loop for every block at once,
+    each block with its own lambda, accept/reject and cost."""
     p0 = strata[0]
     C = p0.poses.shape[0]
     dt = p0.poses.dtype
@@ -455,7 +465,7 @@ def _lm_loop(strata, opts, Qs):
         c = poses.new_zeros(())
         for ptm, pts, Q in zip(strata, points_t, Qs):
             c = c + ptm_cost(ptm, poses, pts, delta, cutoff, Q)
-        return c
+        return allreduce(c)
 
     poses = p0.poses
     points_t = tuple(ptm.points for ptm in strata)
@@ -475,10 +485,11 @@ def _lm_loop(strata, opts, Qs):
             for ch in chunks:
                 u, s, rh = _chunk_stats(poses, ptm.intrinsics, ptm.pose_free,
                                         lam, ch, delta, cutoff)
-                Ucat += u
-                S_pt += s
-                rhs_pt += rh
-        dc6 = _solve_cameras(Ucat, S_pt, rhs_pt, lam, p0.pose_free)
+                Ucat = Ucat + u
+                S_pt = S_pt + s
+                rhs_pt = rhs_pt + rh
+        dc6 = _solve_cameras(allreduce(Ucat), allreduce(S_pt),
+                             allreduce(rhs_pt), lam, p0.pose_free)
 
         cand_points = []
         for ptm, chunks in zip(strata, chunk_sets):
@@ -573,3 +584,49 @@ class DenseSchurSession:
         for idv, pnew in zip(self._ids, points_t):
             pts_full[idv] = pnew[:idv.shape[0]]
         return poses_f, pts_full, info
+
+
+def dense_schur_bundle_adjust_sharded(ptm: PtMajorBA, mesh, opts, Q: int,
+                                      axis: str = "shard"):
+    """Distributed dense-Schur BA over the ``axis`` dimension of ``mesh``
+    (a ``torch.distributed`` DeviceMesh; every rank calls it with the same
+    problem). Points AND their observations are co-partitioned by
+    construction (the point-major layout keeps every observation in its
+    point's row): the point axis is padded to a multiple of world x Q with
+    inert points, each rank runs the LM loop on its contiguous shard, and
+    the only communication inside the loop is the all-reduce of the reduced
+    camera system ((6C)^2 + 42 C + 6 C floats) and of the cost scalar per
+    iteration; the dense camera solve runs replicated on every rank. The
+    points come back gathered to their full length. Returns (poses,
+    points, info), the same on every rank.
+    """
+    import torch.distributed as dist
+
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    P_old = ptm.points.shape[0]
+    mult = n * Q
+    pad = (-P_old) % mult
+    if pad:
+        def padp(a, fill=0):
+            return torch.cat([a, a.new_full((pad,) + a.shape[1:], fill)])
+
+        ptm = ptm._replace(
+            points=padp(ptm.points), cam_idx=padp(ptm.cam_idx),
+            uv=padp(ptm.uv), slot_mask=padp(ptm.slot_mask),
+            point_fixed=padp(ptm.point_fixed, True))
+    Pl = (P_old + pad) // n
+    sl = slice(rank * Pl, (rank + 1) * Pl)
+    local = ptm._replace(points=ptm.points[sl], cam_idx=ptm.cam_idx[sl],
+                         uv=ptm.uv[sl], slot_mask=ptm.slot_mask[sl],
+                         point_fixed=ptm.point_fixed[sl])
+
+    def allreduce(x):
+        dist.all_reduce(x, group=group)
+        return x
+
+    poses, points_t, info = _lm_loop((local,), opts, (Q,), allreduce)
+    parts = [torch.empty_like(points_t[0]) for _ in range(n)]
+    dist.all_gather(parts, points_t[0].contiguous(), group=group)
+    return poses, torch.cat(parts)[:P_old], info

@@ -28,8 +28,12 @@ _SAMPLER = {"pallas": "kernel", "kernel": "kernel", "gather": "gather",
             "auto": "auto"}
 
 
-def _sift_from_fields(fields: dict) -> SIFTParams:
+def _sift_from_fields(fields: dict, twin: bool) -> SIFTParams:
     fields = dict(fields)
+    if twin:
+        # The twin reads low_precision only on a TPU; off a TPU it runs
+        # the branch that the port's False selects.
+        fields["low_precision"] = False
     fields["pyramid"] = PyramidParams(**fields["pyramid"])
     fields["dog"] = DoGParams(**fields["dog"])
     fields["desc_sampler"] = _SAMPLER[fields["desc_sampler"]]
@@ -41,7 +45,8 @@ def params_from_jax(obj):
     ``PyramidParams``, ``MatchParams``, ``BAOptions``, ``OdometryConfig``,
     ``LoopClosureConfig`` or ``GlobalSfMConfig`` (same field values,
     nested ones included; ``desc_sampler="pallas"`` becomes
-    ``"kernel"``)."""
+    ``"kernel"``, and a JAX ``SIFTParams``'s ``low_precision``, which takes
+    effect only on a TPU, becomes False)."""
     from sara_tpu_torch.sfm.global_sfm import GlobalSfMConfig
     from sara_tpu_torch.sfm.loop_closure import LoopClosureConfig
     from sara_tpu_torch.sfm.odometry import OdometryConfig
@@ -50,8 +55,9 @@ def params_from_jax(obj):
     if name == "BAOptions":
         return BAOptions(**obj._asdict())
     fields = dataclasses.asdict(obj)
+    twin = type(obj).__module__.split(".")[0] == "sara_tpu"
     if name == "OdometryConfig":
-        fields["sift"] = _sift_from_fields(fields["sift"])
+        fields["sift"] = _sift_from_fields(fields["sift"], twin)
         fields["ba_options"] = params_from_jax(fields["ba_options"])
         return OdometryConfig(**fields)
     if name == "GlobalSfMConfig":
@@ -66,7 +72,7 @@ def params_from_jax(obj):
     if name == "MatchParams":
         return MatchParams(**fields)
     if name == "SIFTParams":
-        return _sift_from_fields(fields)
+        return _sift_from_fields(fields, twin)
     raise TypeError(f"no port twin for {name}")
 
 

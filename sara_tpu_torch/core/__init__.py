@@ -2,7 +2,9 @@
 
 from sara_tpu_torch.core.types import (Keypoints, Matches, concat_keypoints,
                                        take_keypoints)
+from sara_tpu_torch.core import lie
 from sara_tpu_torch.core import cameras
+from sara_tpu_torch.core import poly
 
 __all__ = ["Keypoints", "Matches", "concat_keypoints", "take_keypoints",
-           "cameras"]
+           "lie", "cameras", "poly"]

@@ -1,11 +1,13 @@
 """Feature detection & description (twin of ``sara_tpu/features``, the
-slice's part)."""
+ported part)."""
 
 from sara_tpu_torch.features.dog import DoGParams, detect_dog_octave
+from sara_tpu_torch.features.orientation import dominant_orientations
 from sara_tpu_torch.features.sift import sift_descriptors
 from sara_tpu_torch.features.api import SIFTParams, compute_sift_keypoints
 
 __all__ = [
-    "DoGParams", "detect_dog_octave", "sift_descriptors",
+    "DoGParams", "detect_dog_octave",
+    "dominant_orientations", "sift_descriptors",
     "SIFTParams", "compute_sift_keypoints",
 ]

@@ -3,8 +3,11 @@
 Twin of ``sara_tpu/features/api.py``: Gaussian/DoG pyramid, then per octave
 extrema -> orientations -> descriptors with fixed capacities, merged into
 one fixed-capacity :class:`~sara_tpu_torch.core.types.Keypoints` in input
-image coordinates. It runs the reference's CPU branch (float32 maps,
-orientation maps at full resolution) on the CPU and on the card alike.
+image coordinates. ``SIFTParams.low_precision`` (bfloat16 orientation maps
+and gradients, orientation maps at stride 2) takes effect on every device.
+Its default is False, the reference's branch off a TPU (float32, stride 1):
+the reference reads the flag only on a TPU, and on the H100 the bfloat16
+branch is no faster (PERF.md, F2).
 """
 
 from __future__ import annotations
@@ -31,15 +34,16 @@ from sara_tpu_torch.ops.topk import chunked_top_k
 
 @dataclass(frozen=True)
 class SIFTParams:
-    """Static configuration for the SIFT pipeline: the same fields and
-    defaults as the JAX twin.
+    """Static configuration for the SIFT pipeline: the JAX twin's fields
+    and defaults, but one.
 
     ``desc_sampler``: "gather" (row gathers, nearest or bilinear per
     ``desc_sample_nearest``), "kernel" (the CUDA patch sampler, always
     bilinear; the JAX twin calls it "pallas") or "auto" (kernel on a CUDA
-    device). ``low_precision`` and ``orientation_downsample=0`` pick bf16
-    maps and stride 2 only on a TPU in the reference; the port follows the
-    reference's other branch: float32 and stride 1.
+    device). ``low_precision`` picks bfloat16 maps, and with
+    ``orientation_downsample=0`` stride 2; ``orientation_downsample`` 1 or
+    2 forces the stride. One deviation from the twin's defaults:
+    ``low_precision`` is False (the twin's True takes effect only on a TPU).
     """
 
     pyramid: PyramidParams = field(
@@ -49,9 +53,9 @@ class SIFTParams:
     max_orientations: int = 2
     total_capacity: int = 8192
     descriptor_bilinear: bool = False
-    low_precision: bool = True
+    low_precision: bool = False
     descriptor_field: bool = True
-    orientation_downsample: int = 0  # 0 = auto (1 here); 1 or 2 forces it
+    orientation_downsample: int = 0  # 0 = auto (2 under low_precision)
     hist_sample_nearest: bool = False
     desc_sample_nearest: bool = True
     desc_sampler: str = "gather"
@@ -63,10 +67,12 @@ def _process_octave(gauss: torch.Tensor, dog: torch.Tensor,
     det = detect_dog_octave(dog, params.dog)
     # The top Gaussian only feeds the last DoG level; drop it.
     gx, gy = gradient(gauss[:-1])
-    ds = params.orientation_downsample if params.orientation_downsample > 0 \
-        else 1
+    cdt = torch.bfloat16 if params.low_precision else None
+    ds = (params.orientation_downsample if params.orientation_downsample > 0
+          else (2 if cdt is not None else 1))
 
-    maps = orientation_maps(gx, gy, sigmas[:-1], downsample=ds)
+    maps = orientation_maps(gx, gy, sigmas[:-1], compute_dtype=cdt,
+                            downsample=ds)
     hist = lowe_smooth(sample_orientation_maps(
         maps, det["x"], det["y"], det["s"], downsample=ds,
         bilinear=not params.hist_sample_nearest))
@@ -94,7 +100,8 @@ def _process_octave(gauss: torch.Tensor, dog: torch.Tensor,
             sampler=params.desc_sampler)
     else:
         desc = sift_descriptors(gx, gy, x, y, s, th, sigmas[:-1],
-                                bilinear=params.descriptor_bilinear)
+                                bilinear=params.descriptor_bilinear,
+                                compute_dtype=cdt)
     return {"x": x, "y": y, "s": s, "value": val, "theta": th,
             "desc": desc, "mask": mask}
 

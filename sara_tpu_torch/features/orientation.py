@@ -34,18 +34,21 @@ def _binned_magnitude(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 
 def orientation_maps(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
                      sigmas, radius_factor: float = 1.5,
-                     downsample: int = 1) -> torch.Tensor:
+                     compute_dtype=None, downsample: int = 1) -> torch.Tensor:
     """Dense Gaussian-blurred 36-bin magnitude maps, (S, Hc, Wc, 36),
-    contiguous, in the gradients' dtype.
+    contiguous, in ``compute_dtype`` (default: the gradients' dtype).
 
     The blur sigma_w = radius_factor * sigma_s per scale equals both the
     orientation-histogram window and the descriptor's spatial-bin
-    half-width, so one set of maps serves both stages. (The twin's
-    ``compute_dtype`` and ``pad_channels`` served the TPU's bf16 maps and
-    128-lane tiles; no caller of the port needs them.)
+    half-width, so one set of maps serves both stages. With
+    ``compute_dtype=torch.bfloat16`` the binned maps, the taps and both
+    blur passes are bfloat16, as in the reference's CPU branch with the
+    same argument.
     """
     S, H, W = gx_stack.shape
     dense = _binned_magnitude(gx_stack, gy_stack)          # (S, 36, H, W)
+    if compute_dtype is not None:
+        dense = dense.to(compute_dtype)
 
     stride = downsample
     sig_eff = [radius_factor * float(sg) for sg in sigmas[:S]]
@@ -96,6 +99,20 @@ def sample_orientation_maps(maps: torch.Tensor, x, y, s,
             + take(y1, x1) * fx * fy)
 
 
+def orientation_histograms(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
+                           x, y, s, sigmas, radius_factor: float = 1.5,
+                           compute_dtype=None, downsample: int = 1
+                           ) -> torch.Tensor:
+    """36-bin Gaussian-weighted orientation histograms of K keypoints,
+    (K, 36) float32: :func:`orientation_maps` read by
+    :func:`sample_orientation_maps`."""
+    maps = orientation_maps(gx_stack, gy_stack, sigmas,
+                            radius_factor=radius_factor,
+                            compute_dtype=compute_dtype,
+                            downsample=downsample)
+    return sample_orientation_maps(maps, x, y, s, downsample=downsample)
+
+
 def lowe_smooth(hist: torch.Tensor, iters: int = 6) -> torch.Tensor:
     """Circular box-3 smoothing, 6 iterations."""
     for _ in range(iters):
@@ -130,3 +147,14 @@ def find_orientation_peaks(hist: torch.Tensor, max_peaks: int = 3,
     theta = bin_f / NUM_BINS * (2.0 * math.pi)
     theta = torch.remainder(theta + math.pi, 2.0 * math.pi) - math.pi
     return theta, valid
+
+
+def dominant_orientations(gx_stack, gy_stack, x, y, s, sigmas,
+                          max_peaks: int = 3, compute_dtype=None,
+                          downsample: int = 1):
+    """Histograms -> Lowe smoothing -> peaks: (orientations (K, max_peaks),
+    valid mask)."""
+    hist = orientation_histograms(gx_stack, gy_stack, x, y, s, sigmas,
+                                  compute_dtype=compute_dtype,
+                                  downsample=downsample)
+    return find_orientation_peaks(lowe_smooth(hist), max_peaks)

@@ -54,7 +54,8 @@ def _normalize(desc: torch.Tensor) -> torch.Tensor:
 
 def sift_descriptors(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
                      x, y, s, theta, sigmas,
-                     bilinear: bool = True) -> torch.Tensor:
+                     bilinear: bool = True,
+                     compute_dtype=None) -> torch.Tensor:
     """128-D SIFT descriptors of K keypoints in one octave, exact grid.
 
     Args:
@@ -64,10 +65,15 @@ def sift_descriptors(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
       theta: (K,) keypoint orientation (radians).
       sigmas: per-scale sigmas (tuple of floats).
       bilinear: bilinear or nearest samples of the gradient maps.
+      compute_dtype: storage dtype of the sampled gradient maps (bfloat16
+        halves the gathered bytes); the binning stays float32.
 
     Returns (K, 128) float32, L2-normalized with 0.2 clamping.
     """
     S, H, W = gx_stack.shape
+    if compute_dtype is not None:
+        gx_stack = gx_stack.to(compute_dtype)
+        gy_stack = gy_stack.to(compute_dtype)
     dev = gx_stack.device
     s_idx = torch.clamp(torch.round(s).long(), 0, S - 1)
     sig_table = put(np.asarray(sigmas, np.float32), dev)

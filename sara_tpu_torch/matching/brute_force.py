@@ -33,23 +33,39 @@ class MatchParams:
 
 
 def _pairwise_sqdist(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """(Na, D) x (Nb, D) -> (Na, Nb) squared L2 distances via GEMM."""
+    """(..., Na, D) x (..., Nb, D) -> (..., Na, Nb) squared L2 distances
+    via one (batched) GEMM."""
     na = (da * da).sum(dim=-1, keepdim=True)
     nb = (db * db).sum(dim=-1, keepdim=True)
-    d2 = na + nb.T - 2.0 * torch.matmul(da, db.T)
+    d2 = na + nb.transpose(-1, -2) - 2.0 * torch.matmul(
+        da, db.transpose(-1, -2))
     return torch.clamp(d2, min=0.0)
 
 
 def _top2_min(d2: torch.Tensor):
     """Row-wise (best, second-best, argbest) by two min passes."""
-    j = torch.argmin(d2, dim=1)
-    d1 = torch.gather(d2, 1, j[:, None])[:, 0]
-    rows = torch.arange(d2.shape[0], device=d2.device)
-    masked = d2.index_put((rows, j), torch.full((), float("inf"),
-                                                dtype=d2.dtype,
-                                                device=d2.device))
-    d2nd = masked.amin(dim=1)
+    j = torch.argmin(d2, dim=-1)
+    d1 = torch.gather(d2, -1, j[..., None])[..., 0]
+    masked = d2.scatter(-1, j[..., None], float("inf"))
+    d2nd = masked.amin(dim=-1)
     return d1, d2nd, j
+
+
+def _match_sets(da, ma, db, mb, ratio: float, mutual: bool = True):
+    """Mutual ratio-test matching of descriptor sets da (..., Na, D) with
+    masks ma (..., Na) against db, mb; leading dims are independent pairs.
+    Returns (j (..., Na) int64, ok (..., Na) bool, d1 (..., Na))."""
+    d2 = _pairwise_sqdist(da, db)
+    d2 = torch.where(ma[..., :, None] & mb[..., None, :], d2,
+                     torch.full_like(d2, float("inf")))
+    d1, d2nd, j = _top2_min(d2)
+    # Lowe ratio on squared distances: d1 < ratio^2 * d2nd.
+    ok = (d1 < (ratio ** 2) * d2nd) & ma & torch.isfinite(d1)
+    if mutual:
+        jT = torch.argmin(d2, dim=-2)  # best a-index for each b-index
+        rows = torch.arange(da.shape[-2], device=da.device)
+        ok = ok & (torch.gather(jT, -1, j) == rows)
+    return j, ok, d1
 
 
 def match_descriptors(a: Keypoints, b: Keypoints,
@@ -63,18 +79,8 @@ def match_descriptors(a: Keypoints, b: Keypoints,
     dev = resolve_device(device)
     a = Keypoints(*(f.to(dev) for f in a))
     b = Keypoints(*(f.to(dev) for f in b))
-    d2 = _pairwise_sqdist(a.descriptors, b.descriptors)
-    d2 = torch.where(a.mask[:, None] & b.mask[None, :], d2,
-                     torch.full_like(d2, float("inf")))
-
-    d1, d2nd, j = _top2_min(d2)
-
-    # Lowe ratio on squared distances: d1 < ratio^2 * d2nd.
-    ok = (d1 < (params.ratio ** 2) * d2nd) & a.mask & torch.isfinite(d1)
+    j, ok, d1 = _match_sets(a.descriptors, a.mask, b.descriptors, b.mask,
+                            params.ratio, params.mutual)
     rows = torch.arange(a.capacity, device=dev)
-    if params.mutual:
-        jT = torch.argmin(d2, dim=0)  # best a-index for each b-index
-        ok = ok & (jT[j] == rows)
-
     return Matches(i=rows.to(torch.int32), j=j.to(torch.int32), score=d1,
                    mask=ok)

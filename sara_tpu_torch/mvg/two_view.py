@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from sara_tpu_torch.ops.smallmat import cross, det3, select
+from sara_tpu_torch.ops.smallmat import cross, det3, take
 
 
 def _cofactor(E: torch.Tensor) -> torch.Tensor:
@@ -128,14 +128,16 @@ def two_view_geometry(E: torch.Tensor, ray1: torch.Tensor,
 
     Triangulates the correspondences under each of the 4 motions (one
     batch of 4) and returns the (R, t) with the most points in front of
-    both cameras, its points, their cheirality and the count.
+    both cameras, its points, their cheirality and the count. ``E``
+    (..., 3, 3) with rays (..., N, 3) resolves a batch of pairs at once.
     """
     if mask is None:
         mask = torch.ones(ray1.shape[:-1], dtype=torch.bool,
                           device=ray1.device)
     R4, t4 = essential_to_motions(E)
-    Xs, d1, d2 = triangulate_linear(R4, t4, ray1, ray2)      # (4, N, ...)
-    cheirals = (d1 > 0) & (d2 > 0) & mask
+    Xs, d1, d2 = triangulate_linear(R4, t4, ray1.unsqueeze(-3),
+                                    ray2.unsqueeze(-3))    # (..., 4, N, ...)
+    cheirals = (d1 > 0) & (d2 > 0) & mask.unsqueeze(-2)
     counts = torch.sum(cheirals.to(torch.int32), dim=-1)
-    best = torch.argmax(counts)
-    return tuple(select(x, best) for x in (R4, t4, Xs, cheirals, counts))
+    best = torch.argmax(counts, dim=-1)
+    return tuple(take(x, best) for x in (R4, t4, Xs, cheirals, counts))

@@ -32,6 +32,16 @@ def select(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return x.index_select(0, i.reshape(1))[0]
 
 
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``x[..., i, ...]`` per batch element: x (*L, M, ...) and an index
+    tensor i (*L,) give (*L, ...); with a 0-dim ``i`` this is
+    :func:`select`. No host sync."""
+    L = i.dim()
+    idx = i.reshape(i.shape + (1,) * (x.dim() - L)).expand(
+        i.shape + (1,) + x.shape[L + 1:])
+    return x.gather(L, idx).squeeze(L)
+
+
 def det3(A: torch.Tensor) -> torch.Tensor:
     """Closed-form determinant of (..., 3, 3)."""
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]

@@ -86,7 +86,10 @@ def estimate_relative_pose(generator, u, v, mask, K1, K2,
     of E, cheirality voting for the motion, and a Gauss-Newton polish of
     (R, t), each kept only where it does not make the fit worse.
 
-    Returns (RansacResult over E, R (3, 3), t (3,)).
+    ``u``, ``v`` (..., N, 2) and ``mask`` (..., N) may carry leading batch
+    dimensions (independent pairs, as the reference ``vmap``s them): every
+    step then runs once for the whole batch and each pair keeps its own
+    decisions. Returns (RansacResult over E, R (..., 3, 3), t (..., 3)).
     """
     un = _normalize_by(u, torch.linalg.inv_ex(K1)[0])
     vn = _normalize_by(v, torch.linalg.inv_ex(K2)[0])
@@ -111,13 +114,15 @@ def estimate_relative_pose(generator, u, v, mask, K1, K2,
 
     def trunc_cost(E):
         r = sampson_epipolar_distance(E, un, vn)
-        return torch.sum(torch.where(mask, torch.minimum(r, thr), 0.0) ** 2), r
+        return torch.sum(torch.where(mask, torch.minimum(r, thr), 0.0) ** 2,
+                         dim=-1), r
 
     c_old, _ = trunc_cost(res.model)
     c_new, r_new = trunc_cost(E_refit)
     better = c_new < c_old
-    inliers = torch.where(better, (r_new < thr) & mask, res.inliers)
-    model = torch.where(better, E_refit, res.model)
+    inliers = torch.where(better[..., None], (r_new < thr) & mask,
+                          res.inliers)
+    model = torch.where(better[..., None, None], E_refit, res.model)
 
     R, t, _, _, _ = two_view_geometry(model, _homogeneous(un),
                                       _homogeneous(vn), inliers)
@@ -128,13 +133,15 @@ def estimate_relative_pose(generator, u, v, mask, K1, K2,
     R_pol, t_pol = refine_relative_pose(R, t, un, vn, inliers.to(un.dtype))
     E_pol = _frobenius_normalized(_cross_mat(t_pol) @ R_pol)
     inl_pol = (sampson_epipolar_distance(E_pol, un, vn) < thr) & mask
-    better = torch.sum(inl_pol) >= torch.sum(inliers)
-    R = torch.where(better, R_pol, R)
-    t = torch.where(better, t_pol, t)
-    inliers = torch.where(better, inl_pol, inliers)
-    res = res._replace(model=torch.where(better, E_pol, model),
+    better = torch.sum(inl_pol, dim=-1) >= torch.sum(inliers, dim=-1)
+    R = torch.where(better[..., None, None], R_pol, R)
+    t = torch.where(better[..., None], t_pol, t)
+    inliers = torch.where(better[..., None], inl_pol, inliers)
+    res = res._replace(model=torch.where(better[..., None, None], E_pol,
+                                         model),
                        inliers=inliers,
-                       num_inliers=torch.sum(inliers.to(torch.int32)))
+                       num_inliers=torch.sum(inliers.to(torch.int32),
+                                             dim=-1))
     return res, R, t
 
 
@@ -144,50 +151,65 @@ _cross_mat = lie.skew       # [v]x, the reference's _cross_mat
 def refine_relative_pose(R0, t0, un, vn, weights, iters: int = 8):
     """Gauss-Newton minimization of the weighted signed Sampson residual
     over (R, t): R = exp(w) R0, t = normalize(t0 + B s) with B an
-    orthonormal basis of t0's tangent plane. Returns (R, t)."""
-    from torch.func import jacfwd
+    orthonormal basis of t0's tangent plane. Returns (R, t).
+
+    Leading batch dimensions of (R0 (..., 3, 3), t0 (..., 3), un, vn
+    (..., N, 2), weights (..., N)) are independent problems; their
+    Jacobians (..., N, 5) come from five forward-mode products over the
+    whole batch."""
+    from torch.func import jvp, vmap
 
     def unit(x):
-        return x / torch.clamp(torch.linalg.vector_norm(x), min=1e-12)
+        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1,
+                                                        keepdim=True),
+                               min=1e-12)
 
     t0 = unit(t0)
     eye = torch.eye(3, dtype=t0.dtype, device=t0.device)
-    a = torch.where(t0[0].abs() < 0.9, eye[0], eye[1])
+    a = torch.where(t0[..., :1].abs() < 0.9, eye[0], eye[1])
     b1 = unit(cross(t0, a))
     b2 = cross(t0, b1)
-    B = torch.stack([b1, b2], dim=-1)                        # (3, 2)
+    B = torch.stack([b1, b2], dim=-1)                        # (..., 3, 2)
     uh, vh = _homogeneous(un), _homogeneous(vn)
 
     def resid(p):
-        E = _cross_mat(unit(t0 + B @ p[3:])) @ (lie.so3_exp(p[:3]) @ R0)
-        Eu = uh @ E.T                                        # (N, 3)
+        t = unit(t0 + (B @ p[..., 3:, None])[..., 0])
+        E = _cross_mat(t) @ (lie.so3_exp(p[..., :3]) @ R0)
+        Eu = uh @ E.transpose(-1, -2)                        # (..., N, 3)
         Etv = vh @ E
         num = torch.sum(vh * Eu, dim=-1)
-        den = torch.sqrt(Eu[:, 0] ** 2 + Eu[:, 1] ** 2
-                         + Etv[:, 0] ** 2 + Etv[:, 1] ** 2)
+        den = torch.sqrt(Eu[..., 0] ** 2 + Eu[..., 1] ** 2
+                         + Etv[..., 0] ** 2 + Etv[..., 1] ** 2)
         return weights * num / torch.clamp(den, min=1e-12)
 
     eye5 = torch.eye(5, dtype=un.dtype, device=un.device)
-    p = torch.zeros(5, dtype=un.dtype, device=un.device)
+    p = un.new_zeros(t0.shape[:-1] + (5,))
+    basis = eye5.reshape((5,) + (1,) * (p.dim() - 1) + (5,)).expand(
+        (5,) + p.shape)
     for _ in range(iters):
         r = resid(p)
-        J = jacfwd(resid)(p)                                 # (N, 5)
-        dp = -torch.linalg.solve_ex(J.T @ J + 1e-10 * eye5, J.T @ r)[0]
+        J = vmap(lambda d: jvp(resid, (p,), (d,))[1])(basis)  # (5, ..., N)
+        J = torch.movedim(J, 0, -1)                           # (..., N, 5)
+        Jt = J.transpose(-1, -2)
+        dp = -torch.linalg.solve_ex(Jt @ J + 1e-10 * eye5,
+                                    (Jt @ r[..., None]))[0][..., 0]
         p2 = p + dp
-        ok = torch.sum(resid(p2) ** 2) < torch.sum(r ** 2)
-        p = torch.where(ok, p2, p)
-    return lie.so3_exp(p[:3]) @ R0, unit(t0 + B @ p[3:])
+        ok = torch.sum(resid(p2) ** 2, dim=-1) < torch.sum(r ** 2, dim=-1)
+        p = torch.where(ok[..., None], p2, p)
+    return (lie.so3_exp(p[..., :3]) @ R0,
+            unit(t0 + (B @ p[..., 3:, None])[..., 0]))
 
 
 def _refit_essential(un, vn, mask, inliers, thr, iters: int = 3):
     """IRLS refit of E: weighted masked linear system + essential
     projection, with Cauchy weights on the Sampson residual (scale thr)."""
-    A = _epipolar_design_rows(un, vn)                        # (N, 9)
+    A = _epipolar_design_rows(un, vn)                        # (..., N, 9)
     diag = torch.ones(3, dtype=A.dtype, device=A.device)
     diag[2] = 0.0
 
     def fit(w):
-        E = null_vectors(A * w[:, None])[-1].reshape(3, 3)
+        E = null_vectors(A * w[..., None])[..., -1, :].reshape(
+            A.shape[:-2] + (3, 3))
         U, _, V = torch.linalg.svd(E)
         return _frobenius_normalized((U * diag) @ V)
 

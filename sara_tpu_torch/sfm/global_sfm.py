@@ -15,14 +15,14 @@ pipeline is:
   4. a pose-graph polish over the epipolar graph (``sfm/pose_graph_opt.py``),
   5. track building (native union-find) + batched multi-view DLT
      triangulation,
-  6. global Schur-complement bundle adjustment (``ba``).
+  6. global Schur-complement bundle adjustment (``ba``), or the
+     keyframe/map-block partitioned BA (``ba/partitioned.py``), optionally
+     with its blocks split over a ``torch.distributed`` device mesh.
 
 Everything runs on ``device`` (None = the CUDA device; raises without
 one) in float32, the reference's production precision; the DLT runs on
 K-normalised coordinates. Every estimator draws from one
-``torch.Generator`` (default: seed 0 on the device). The partitioned BA
-(``ba_blocks > 0``) and its device mesh (``ba_mesh``) are not ported yet
-(ROADMAP D2): asking for them raises.
+``torch.Generator`` (default: seed 0 on the device).
 """
 
 from __future__ import annotations
@@ -37,9 +37,11 @@ import torch
 
 from sara_tpu_torch import resolve_device
 from sara_tpu_torch.ba import BAOptions, BAProblem, bundle_adjust
+from sara_tpu_torch.ba.partitioned import partitioned_bundle_adjust
 from sara_tpu_torch.core import lie
 from sara_tpu_torch.core.types import Keypoints
-from sara_tpu_torch.matching.brute_force import MatchParams, match_descriptors
+from sara_tpu_torch.matching.brute_force import (MatchParams, _match_sets,
+                                                 match_descriptors)
 from sara_tpu_torch.ops.smallmat import assemble_blocks
 from sara_tpu_torch.ransac.estimators import estimate_relative_pose
 from sara_tpu_torch.sfm.edge_scales import (estimate_edge_scales,
@@ -72,8 +74,9 @@ class GlobalSfMConfig:
     # bringing each chunk's results over in one transfer.
     pair_chunk: int = 0
     # Keyframe/map-block partitioned BA (BASELINE config 5): > 0 splits the
-    # final bundle adjustment into this many camera blocks. Not ported yet
-    # (ROADMAP D2): run_global_sfm raises for it.
+    # final bundle adjustment into this many camera blocks solved as
+    # batched dense-Schur sub-problems (ba/partitioned.py), optionally
+    # split over a device mesh (``ba_mesh``). 0 = single global solve.
     ba_blocks: int = 0
     ba_sweeps: int = 3
     # Use shared-track depth-ratio edge scales for translation recovery
@@ -84,37 +87,26 @@ class GlobalSfMConfig:
 
 def _pair_chunk_program(xy, desc, mask, ia, ib, generator, K,
                         ratio, threshold_px, num_samples, min_inliers):
-    """Match + E-RANSAC for a chunk of image pairs.
+    """Match + E-RANSAC for a chunk of image pairs as one batched program.
 
     xy/desc/mask: (V, N, ...) stacked keypoint tensors; ia/ib: the chunk's
-    pair indices (sequences of ints), with ``None`` for a padding slot,
-    which is skipped (its row comes out unsuccessful). The pairs run one
-    by one through ``match_descriptors`` and ``estimate_relative_pose``,
-    drawing from ``generator``. Returns stacked per-pair (j, ok, inliers,
-    success, R, t)."""
-    N = xy.shape[1]
-    zeros = xy.new_zeros((N,))
-    cols = [[] for _ in range(6)]
-    for a, b in zip(ia, ib):
-        if a is None:
-            outs = (torch.zeros(N, dtype=torch.int32, device=xy.device),
-                    torch.zeros(N, dtype=torch.bool, device=xy.device),
-                    torch.zeros(N, dtype=torch.bool, device=xy.device),
-                    torch.zeros((), dtype=torch.bool, device=xy.device),
-                    xy.new_zeros((3, 3)), xy.new_zeros((3,)))
-        else:
-            ka = Keypoints(xy[a], zeros, zeros, zeros, desc[a], mask[a])
-            kb = Keypoints(xy[b], zeros, zeros, zeros, desc[b], mask[b])
-            m = match_descriptors(ka, kb, MatchParams(ratio=ratio),
-                                  device=xy.device)
-            res, R, t = estimate_relative_pose(
-                generator, xy[a], xy[b][m.j.long()], m.mask, K, K,
-                threshold_px=threshold_px, num_samples=num_samples,
-                min_inliers=min_inliers)
-            outs = (m.j, m.mask, res.inliers & m.mask, res.success, R, t)
-        for col, o in zip(cols, outs):
-            col.append(o)
-    return tuple(torch.stack(col) for col in cols)
+    B pair indices (sequences of ints), with ``None`` for a padding slot,
+    whose masks are all False so its row comes out unsuccessful. The chunk
+    is matched as one batched GEMM over (B, N, 128) and its B relative
+    poses are estimated together (one ``torch.multinomial`` draw from
+    ``generator`` for all pairs), as the reference ``vmap``s the pair.
+    Returns stacked per-pair (j, ok, inliers, success, R, t)."""
+    dev = xy.device
+    live = put(np.asarray([a is not None for a in ia]), dev)
+    ia = put(np.asarray([0 if a is None else a for a in ia], np.int64), dev)
+    ib = put(np.asarray([0 if b is None else b for b in ib], np.int64), dev)
+    j, ok, _ = _match_sets(desc[ia], mask[ia] & live[:, None], desc[ib],
+                           mask[ib] & live[:, None], ratio)
+    xb = torch.gather(xy[ib], 1, j[..., None].expand(-1, -1, 2))
+    res, R, t = estimate_relative_pose(
+        generator, xy[ia], xb, ok, K, K, threshold_px=threshold_px,
+        num_samples=num_samples, min_inliers=min_inliers)
+    return j.to(torch.int32), ok, res.inliers & ok, res.success, R, t
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
@@ -244,14 +236,12 @@ def run_global_sfm(keypoint_sets: List[Keypoints], K: np.ndarray,
       K: shared (3, 3) intrinsics.
       pairs: image pairs to match (default: all pairs).
       generator: a ``torch.Generator`` on the device (default: seed 0).
+      ba_mesh: a ``torch.distributed`` DeviceMesh with a "block" axis for
+        the partitioned BA (``config.ba_blocks > 0``); every rank of it
+        runs this call.
 
     Returns dict with R (V,3,3), t (V,3), points (P,3), tracker, ba_info.
     """
-    if config.ba_blocks > 0 or ba_mesh is not None:
-        raise NotImplementedError(
-            "run_global_sfm: the partitioned BA (ba_blocks > 0) and its "
-            "device mesh (ba_mesh) are not ported yet (ROADMAP D2, "
-            "ba/partitioned.py and parallel/*)")
     dev = resolve_device(device)
     V = len(keypoint_sets)
     if generator is None:
@@ -353,13 +343,13 @@ def run_global_sfm(keypoint_sets: List[Keypoints], K: np.ndarray,
         raise RuntimeError(
             f"epipolar graph too sparse: {len(edges)} edges for {V} views")
     out = _global_stages(V, K, config, dev, tracker, xy_host, edges, edge_R,
-                         edge_t, edge_feats, _mark)
+                         edge_t, edge_feats, _mark, ba_mesh)
     out["stage_times"] = stage_t
     return out
 
 
 def _global_stages(V, K, config, dev, tracker, xy_host, edges, edge_R,
-                   edge_t, edge_feats, _mark):
+                   edge_t, edge_feats, _mark, ba_mesh=None):
     """Stages 3-6 of :func:`run_global_sfm` on the epipolar graph of the
     pair stage: rotation averaging, translation recovery, the pose-graph
     polish, tracks + triangulation and the global BA. ``_mark(name)`` is
@@ -488,10 +478,18 @@ def _global_stages(V, K, config, dev, tracker, xy_host, edges, edge_R,
         pose_fixed=put(pose_fixed, dev),
         point_fixed=put(np.zeros(len(Xk), bool), dev),
     )
-    out, info = bundle_adjust(prob, config.ba_options)
-    names = list(info)
-    poses_out, points_out, *info_host = fetch(
-        out.poses, out.points, *(info[k] for k in names))   # one transfer
+    if config.ba_blocks > 0:
+        # Its info is already on the host.
+        out, ba_info = partitioned_bundle_adjust(
+            prob, config.ba_blocks, config.ba_options,
+            sweeps=config.ba_sweeps, mesh=ba_mesh)
+        poses_out, points_out = fetch(out.poses, out.points)
+    else:
+        out, info = bundle_adjust(prob, config.ba_options)
+        names = list(info)
+        poses_out, points_out, *info_host = fetch(
+            out.poses, out.points, *(info[k] for k in names))
+        ba_info = dict(zip(names, info_host))
     _mark("bundle_adjustment")
 
     R_fin = _so3_exp_host(poses_out[:, :3])
@@ -503,7 +501,7 @@ def _global_stages(V, K, config, dev, tracker, xy_host, edges, edge_R,
         "num_edges": len(edges),
         "n_obs": len(obs_cam),
         "ba_problem": prob,
-        "ba_info": dict(zip(names, info_host)),
+        "ba_info": ba_info,
         # Stage diagnostics.
         "edges": edges,
         "edge_R": edge_R,

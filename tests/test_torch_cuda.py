@@ -532,3 +532,101 @@ def test_run_global_sfm_on_card(cuda):
     assert ate_rmse(centers, centers_gt) < 0.15
     assert len(out["points"]) > 100
     assert out["ba_info"]["final_cost"] < out["ba_info"]["initial_cost"]
+
+
+@pytest.mark.cuda
+def test_run_global_sfm_partitioned_on_card(cuda):
+    """The global pipeline with the partitioned BA (2 blocks, 2 sweeps) on
+    a "block" mesh of one rank on the card: the reference test's gates."""
+    from sara_tpu_torch.ba import BAOptions
+    from sara_tpu_torch.parallel import make_mesh
+    from sara_tpu_torch.sfm.global_sfm import GlobalSfMConfig, run_global_sfm
+    from sara_tpu_torch.utils import ate_rmse
+
+    kps, centers_gt, K = _keypoint_sequence()
+    cfg = GlobalSfMConfig(rel_pose_samples=200, min_pair_inliers=30,
+                          pair_chunk=8, ba_options=BAOptions(max_iters=10),
+                          ba_blocks=2, ba_sweeps=2)
+    out = run_global_sfm(kps, K, config=cfg, ba_mesh=make_mesh(axis="block"))
+    V = len(kps)
+    centers = np.stack([-out["R"][v].T @ out["t"][v] for v in range(V)])
+    assert ate_rmse(centers, centers_gt) < 0.15
+    assert len(out["points"]) > 100
+    assert out["ba_info"]["final_cost"] <= out["ba_info"]["initial_cost"]
+
+
+@pytest.mark.cuda
+def test_sharded_dense_schur_nccl_world_of_one(cuda):
+    """dense_schur_bundle_adjust_sharded on a world of one under NCCL (one
+    H100 takes one rank) equals the unsharded loop on the same packing."""
+    import torch.distributed as dist
+
+    from sara_tpu_torch.ba import BAOptions
+    from sara_tpu_torch.ba.dense_schur import (
+        dense_schur_bundle_adjust, dense_schur_bundle_adjust_sharded,
+        pack_pt_major)
+    from sara_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    assert dist.get_backend() == "nccl" and mesh.size() == 1
+    prob = _ba_problem(cuda)
+    opts = BAOptions(max_iters=8)
+    ptm, stats = pack_pt_major(prob, chunk=64)
+    _, _, ref = dense_schur_bundle_adjust(ptm, opts, stats["chunk"])
+    poses, points, info = dense_schur_bundle_adjust_sharded(
+        ptm, mesh, opts, stats["chunk"])
+    assert poses.is_cuda and points.shape[0] == ptm.points.shape[0]
+    rel = ((info["costs"] - ref["costs"]).abs() / ref["costs"]).max()
+    assert float(rel) <= 1e-6
+    assert float(info["final_cost"]) < float(info["initial_cost"])
+
+
+@pytest.mark.cuda
+def test_partitioned_on_card_matches_cpu(cuda):
+    """The partitioned BA (blocks batched by vmap) in float32 on the card
+    against the CPU: final costs within 1e-3 relative."""
+    from sara_tpu_torch.ba import BAOptions, ba_cost
+    from sara_tpu_torch.ba.partitioned import partitioned_bundle_adjust
+
+    costs = []
+    for dev in (cuda, torch.device("cpu")):
+        prob = _ba_problem(dev)
+        out, info = partitioned_bundle_adjust(prob, 2, BAOptions(max_iters=6),
+                                              sweeps=2)
+        assert out.poses.device.type == dev.type
+        costs.append(float(ba_cost(out, 4.0, 6.0)))
+        assert costs[-1] < float(ba_cost(prob, 4.0, 6.0))
+    assert abs(costs[0] - costs[1]) <= 1e-3 * costs[1]
+
+
+@pytest.mark.cuda
+def test_batched_pair_chunk_on_card_matches_cpu(cuda, monkeypatch):
+    """The chunked pair stage as one batched program on the card against
+    the same program on the CPU, with the same sample indices: the same
+    matches and success, rotations within 1e-3."""
+    from sara_tpu_torch.ransac import engine
+    from sara_tpu_torch.sfm.global_sfm import _pair_chunk_program
+
+    kps, _, K = _keypoint_sequence()
+    draw = engine.draw_samples
+
+    def same_samples(gen, S, k, mask):
+        idx, ok = draw(torch.Generator().manual_seed(0), S, k, mask.cpu())
+        return idx.to(mask.device), ok.to(mask.device)
+
+    monkeypatch.setattr(engine, "draw_samples", same_samples)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        stack = lambda n: torch.stack([getattr(k, n).to(dev)  # noqa: E731
+                                       for k in kps])
+        outs.append(_pair_chunk_program(
+            stack("xy"), stack("descriptors"), stack("mask"),
+            [0, 1, 2, None], [1, 2, 3, None], None,
+            torch.tensor(K, dtype=torch.float32, device=dev), 0.8, 4.0, 200,
+            30))
+    (j, ok, inl, success, R, t), ref = outs[0], outs[1]
+    assert R.is_cuda
+    assert torch.equal(ok.cpu(), ref[1]) and torch.equal(success.cpu(),
+                                                         ref[3])
+    assert success.tolist() == [True, True, True, False]
+    assert float((R.cpu() - ref[4])[:3].abs().max()) < 1e-3

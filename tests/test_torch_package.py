@@ -42,7 +42,9 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.sfm.pose_graph_opt, "
             "sara_tpu_torch.sfm.rotation_averaging, "
             "sara_tpu_torch.sfm.edge_scales, sara_tpu_torch.sfm.loop_closure, "
-            "sara_tpu_torch.sfm.global_sfm, sara_tpu_torch.utils.log; "
+            "sara_tpu_torch.sfm.global_sfm, sara_tpu_torch.utils.log, "
+            "sara_tpu_torch.ba.partitioned, sara_tpu_torch.parallel, "
+            "sara_tpu_torch.utils.roofline; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -130,6 +132,127 @@ def test_run_global_sfm_defaults_to_the_card():
         run_global_sfm([], np.eye(3))
 
 
+def test_make_mesh_defaults_to_the_card():
+    """make_mesh(device=None) starts its world on the card (NCCL), and
+    raises without one instead of falling back to gloo."""
+    from sara_tpu_torch.parallel import make_mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (the card run is in "
+                    "chip_smoke.py's phase dist)")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+
+
+@pytest.mark.parametrize("make", ["make_mesh", "make_host_chip_mesh"])
+def test_card_mesh_refuses_a_gloo_group(make, monkeypatch, tmp_path):
+    """Over a gloo group already started, a mesh on the card raises instead
+    of running the card's collectives through gloo (the device check is
+    monkeypatched to "cuda", so no card is needed)."""
+    import torch.distributed as dist
+
+    from sara_tpu_torch import parallel
+    from sara_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="NCCL process group"):
+            getattr(parallel, make)()
+    finally:
+        dist.destroy_process_group()
+
+
+# --- F1: every public name of a ported module is its twin's ---------------
+
+# The deliberate changes (ROADMAP F1): a torch.Generator where the twin
+# takes a PRNG key; no TPU-only arguments (chunked_top_k's ``chunk`` with
+# its bound, sample_field_patches' ``interpret``, orientation_maps'
+# ``pad_channels``, which pads the channels to the TPU's 128-lane tiles);
+# entry points add
+# ``device=``. Slice D2 adds the H100's constants where the twin names the
+# TPU's (the comm model's links, the roofline's VPU peak).
+RENAMED_ARGS = {"key": "generator"}
+DROPPED_ARGS = {("ops/topk.py", "chunked_top_k"): {"chunk"},
+                ("ops/patch_sampler.py", "sample_field_patches"):
+                    {"interpret"},
+                ("features/orientation.py", "orientation_maps"):
+                    {"pad_channels"}}
+ADDED_ARGS = {"device"}
+REPLACED_NAMES = {
+    "ops/topk.py": {"MAX_TOPK_CHUNK"},               # chunked_top_k's chunk
+    "parallel/comm_model.py": {"ICI_BW", "DCN_BW"},  # NVLINK_BW, NIC_BW
+    "utils/roofline.py": {"PEAK_VPU_FLOPS"},         # no TPU VPU on a GPU
+}
+# Names of partly ported modules that a later slice ports (ROADMAP E0).
+QUEUED = {
+    "image/differential.py": {"gradient_polar", "laplacian", "hessian",
+                              "second_moment_matrix", "harris_cornerness",
+                              "mean_curvature", "mean_curvature_flow"},
+    "image/filtering.py": {"conv2d", "box_blur", "sobel"},
+    "image/pyramid.py": {"laplacian_pyramid"},
+}
+
+
+def _public(path):
+    """Top-level public names of a module: functions (with their argument
+    names), classes and constants; and ``__all__`` with the module each
+    name is imported from."""
+    import ast
+
+    names, exported, origin = {}, set(), {}
+    for n in ast.parse(path.read_text()).body:
+        if isinstance(n, ast.FunctionDef) and not n.name.startswith("_"):
+            names[n.name] = [a.arg for a in n.args.args + n.args.kwonlyargs]
+        elif isinstance(n, ast.ClassDef) and not n.name.startswith("_"):
+            names[n.name] = None
+        elif isinstance(n, (ast.Assign, ast.AnnAssign)):
+            for t in (n.targets if isinstance(n, ast.Assign) else [n.target]):
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    exported = set(ast.literal_eval(n.value))
+                elif isinstance(t, ast.Name) and not t.id.startswith("_"):
+                    names[t.id] = None
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            for a in n.names:
+                origin[a.asname or a.name] = n.module
+    return names, exported, origin
+
+
+PORTED = sorted(p.relative_to(ROOT / "sara_tpu_torch").as_posix()
+                for p in (ROOT / "sara_tpu_torch").rglob("*.py")
+                if (ROOT / "sara_tpu" / p.relative_to(
+                    ROOT / "sara_tpu_torch")).exists())
+
+
+@pytest.mark.parametrize("rel", PORTED)
+def test_public_names_match_twin(rel):
+    twin, t_all, t_origin = _public(ROOT / "sara_tpu" / rel)
+    port, p_all, _ = _public(ROOT / "sara_tpu_torch" / rel)
+    skip = REPLACED_NAMES.get(rel, set()) | QUEUED.get(rel, set())
+    missing = sorted(set(twin) - set(port) - skip)
+    assert not missing, f"{rel} lacks {missing}"
+    for name, args in twin.items():
+        if args is None or name not in port:
+            continue
+        want = [RENAMED_ARGS.get(a, a) for a in args
+                if a not in DROPPED_ARGS.get((rel, name), set())]
+        got = [a for a in port[name] if a not in ADDED_ARGS]
+        assert got == want, f"{rel}::{name} takes {got}, the twin {want}"
+    for name in sorted(t_all - p_all):
+        # Only names of modules that have no port yet may be missing.
+        mod = t_origin.get(name, "")
+        src = ROOT / (mod.replace(".", "/") + ".py")
+        port_src = ROOT / (mod.replace("sara_tpu", "sara_tpu_torch", 1)
+                           .replace(".", "/") + ".py")
+        queued = QUEUED.get(
+            port_src.relative_to(ROOT / "sara_tpu_torch").as_posix()
+            if port_src.exists() else "", set())
+        assert src.exists() and (not port_src.exists() or name in queued), \
+            f"{rel}: __all__ lacks {name}"
+
+
 def test_package_data_ships_every_native_source():
     """Every file under sara_tpu_torch/**/csrc/ matches a package-data
     pattern, so an installed package builds the native union-find (and the
@@ -165,13 +288,18 @@ def test_params_from_jax_round_trip(jax_params):
     if "desc_sampler" in want:
         want["desc_sampler"] = {"pallas": "kernel"}.get(
             want["desc_sampler"], want["desc_sampler"])
+        want["low_precision"] = False       # the twin's takes effect on a TPU
+        on = dataclasses.replace(port, low_precision=True)
+        assert params_from_jax(on) == on           # the port's own is kept
     assert dataclasses.asdict(port) == want
     assert params_from_jax(port) == port          # twins map onto themselves
 
 
 def test_sift_params_defaults_match_twin():
-    assert dataclasses.asdict(SIFTParams()) == dataclasses.asdict(
-        JaxSIFTParams())
+    # One deliberate deviation: low_precision is off by default (the twin's
+    # True takes effect only on a TPU; PERF.md, F2).
+    assert dataclasses.asdict(SIFTParams()) == dict(
+        dataclasses.asdict(JaxSIFTParams()), low_precision=False)
 
 
 def test_keypoints_from_numpy_and_container_ops():

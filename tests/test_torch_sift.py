@@ -160,10 +160,14 @@ def _pair(kj, kt):
     return paired, nn, dpos[rows, nn]
 
 
-@pytest.mark.parametrize("nearest,first_octave", [
-    (False, -1), (True, -1), (False, 0)], ids=["slice", "nearest", "vo"])
-def test_compute_sift_keypoints_end_to_end(image, nearest, first_octave):
-    jp = _jax_params(nearest, first_octave)
+@pytest.mark.parametrize("nearest,first_octave,ds", [
+    (False, -1, 0), (True, -1, 0), (False, 0, 0), (False, -1, 2)],
+    ids=["slice", "nearest", "vo", "orientation_ds2"])
+def test_compute_sift_keypoints_end_to_end(image, nearest, first_octave, ds):
+    """Case orientation_ds2: orientation maps at stride 2, against the
+    reference's CPU harness with the same ``orientation_downsample``."""
+    jp = dataclasses.replace(_jax_params(nearest, first_octave),
+                             orientation_downsample=ds)
     kj = japi.compute_sift_keypoints(jnp.asarray(image), jp)
     before = ps.LAUNCHES
     kt = tapi.compute_sift_keypoints(image, params_from_jax(jp),
