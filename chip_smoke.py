@@ -88,7 +88,17 @@ raises, so the script exits nonzero and prints no result line):
    meshed partitioned solve equals phase "city"'s within 1e-6, batched
    matching of 8 pairs equals ``match_descriptors``; records the
    all-reduce ms of one LM iteration's payload;
-15. print the kernels line, the card line, then the result line.
+15. phase "calib" (Slice E, camera calibration as
+   ``python -m sara_tpu_torch.calib.cli`` runs it): 20 rendered 1280x720
+   views of a 6x9-inner-corner board (K = 1000, 1000, 640, 360; yaw and
+   pitch over +-35 degrees) through the CLI's ``collect_views`` and
+   ``calibrate_views``; gates: 20/20 grids, corners within 0.3 px, fx and
+   fy within 0.5%, cx and cy within 2 px, RMS < 0.1 px, float32 against
+   float64, a barrel-warped view through the squares fallback within 0.7
+   px, ``calibrate_omnidirectional`` recovering xi = 0.8 within 0.1, one
+   view's device program on the card equal to the CPU's; records ms per
+   view and its split, the LM's ms, syncs and a profile;
+16. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -587,8 +597,11 @@ def count_syncs(fn) -> dict:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    # The notice that the debug mode is a prototype (emitted once per
+    # process, by set_sync_debug_mode itself) is not a sync.
     where = [f"{w.filename.split('/')[-1]}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
+             if "synchroniz" in str(w.message)
+             and "prototype" not in str(w.message)]
     return {"syncs": len(where),
             "at": {k: where.count(k) for k in sorted(set(where))}}
 
@@ -1931,6 +1944,295 @@ def phase_dist(card: str, city_prob, city_part, frames, device="cuda",
     return out
 
 
+CALIB_HW = (720, 1280)           # a 720p camera, as a user of the CLI films
+CALIB_BOARD = (6, 9)             # inner corners (rows, cols)
+CALIB_K = np.array([[1000.0, 0, 640.0], [0, 1000.0, 360.0], [0, 0, 1.0]])
+CALIB_VIEWS = 20
+
+
+def render_chessboard(K, R, t, rows=5, cols=7, square=1.0, hw=(240, 320),
+                      ss=3, device="cpu"):
+    """tests/test_calibration.py::_render_chessboard (that file imports
+    JAX), in float64 torch on ``device`` in bands of rows: a (rows+1) x
+    (cols+1)-square board through the plane-to-image homography,
+    supersampled ``ss`` x ``ss`` per pixel. Returns (float32 image,
+    inner-corner pixels (rows, cols, 2), object points (rows, cols, 2)) as
+    numpy arrays."""
+    H, W = hw
+    Hmat = K @ np.stack([R[:, 0], R[:, 1], t], axis=1)
+    Hinv = torch.as_tensor(np.linalg.inv(Hmat), device=device)
+    xs = (torch.arange(W * ss, dtype=torch.float64, device=device) + 0.5) \
+        / ss - 0.5
+    img = torch.empty((H, W), dtype=torch.float64, device=device)
+    band = 48
+    for y0 in range(0, H, band):
+        h = min(band, H - y0)
+        ys = (torch.arange(y0 * ss, (y0 + h) * ss, dtype=torch.float64,
+                           device=device) + 0.5) / ss - 0.5
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        q = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1) @ Hinv.T
+        X = q[..., 0] / q[..., 2]
+        Y = q[..., 1] / q[..., 2]
+        inside = ((X >= 0) & (X <= (cols + 1) * square)
+                  & (Y >= 0) & (Y <= (rows + 1) * square))
+        checker = torch.remainder(torch.floor(X / square)
+                                  + torch.floor(Y / square), 2)
+        v = torch.where(inside, checker, torch.ones_like(checker))
+        img[y0:y0 + h] = v.reshape(h, ss, W, ss).mean(dim=(1, 3))
+    jj, ii = np.meshgrid(np.arange(1, cols + 1), np.arange(1, rows + 1))
+    obj = np.stack([jj * square, ii * square], axis=-1).astype(float)
+    P = np.concatenate([obj.reshape(-1, 2), np.ones((rows * cols, 1))],
+                       axis=1) @ Hmat.T
+    return (img.to(torch.float32).cpu().numpy(),
+            (P[:, :2] / P[:, 2:]).reshape(rows, cols, 2), obj)
+
+
+def board_pose(yaw, pitch, rows, cols, distance):
+    """World -> camera (R, t) of a board turned by ``yaw`` and ``pitch``
+    whose centre lies ``distance`` in front of the camera, on its axis."""
+    cy_, sy_, cp, sp = np.cos(yaw), np.sin(yaw), np.cos(pitch), np.sin(pitch)
+    R = (np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
+         @ np.array([[1, 0, 0], [0, cp, -sp], [0, sp, cp]]))
+    centre = np.array([(cols + 1) / 2.0, (rows + 1) / 2.0, 0.0])
+    return R, np.array([0.0, 0.0, distance]) - R @ centre
+
+
+def calib_views(n=CALIB_VIEWS, seed=0, device="cpu"):
+    """``n`` 1280x720 views of the 6x9 board with K = (1000, 1000, 640,
+    360): yaw and pitch on a 5 x 4 grid over +-35 degrees with a seeded
+    jitter, the board's centre at distance 12 to 17 squares, rendered with
+    6 x 6 samples per pixel on ``device`` (3 x 3, the reference test's,
+    leaves up to 0.3 px of aliasing in the corners at this size)."""
+    rs = np.random.RandomState(seed)
+    rows, cols = CALIB_BOARD
+    yaws = np.radians(np.linspace(-35, 35, 5))
+    pitches = np.radians(np.linspace(-35, 35, 4))
+    out = []
+    for k in range(n):
+        yaw = yaws[k % 5] + np.radians(rs.uniform(-2, 2))
+        pitch = pitches[(k // 5) % 4] + np.radians(rs.uniform(-2, 2))
+        R, t = board_pose(yaw, pitch, rows, cols, rs.uniform(12, 17))
+        img, pix, _ = render_chessboard(CALIB_K, R, t, rows, cols,
+                                        hw=CALIB_HW, ss=6, device=device)
+        out.append((img, pix))
+    return out
+
+
+def barrel_warp(img, k1=-0.30, f=800.0):
+    """dst(q) = src(c + (q - c)(1 + k1 |q - c|^2 / f^2)), bilinear with
+    replicated borders (cv2.remap's INTER_LINEAR / BORDER_REPLICATE, in
+    numpy), and the map of an undistorted pixel to its distorted place."""
+    h, w = img.shape
+    cx, cy = w / 2.0, h / 2.0
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    r2 = ((xs - cx) / f) ** 2 + ((ys - cy) / f) ** 2
+    mx = np.clip(cx + (xs - cx) * (1 + k1 * r2), 0, w - 1)
+    my = np.clip(cy + (ys - cy) * (1 + k1 * r2), 0, h - 1)
+    x0 = np.minimum(np.floor(mx).astype(int), w - 2)
+    y0 = np.minimum(np.floor(my).astype(int), h - 2)
+    fx, fy = mx - x0, my - y0
+    out = (img[y0, x0] * (1 - fx) * (1 - fy) + img[y0, x0 + 1] * fx * (1 - fy)
+           + img[y0 + 1, x0] * (1 - fx) * fy + img[y0 + 1, x0 + 1] * fx * fy)
+
+    def forward(p):
+        q = p.copy()
+        for _ in range(30):
+            n = (q - [cx, cy]) / f
+            q = np.array([cx, cy]) + (p - [cx, cy]) / (1 + k1 * (n * n).sum())
+        return q
+    return out.astype(np.float32), forward
+
+
+def omni_views(xi=0.8, n=CALIB_VIEWS, seed=1):
+    """Planar views projected through the unified model [fx fy cx cy k1 k2
+    xi] = [1800, 1800, 640, 360, 0, 0, xi] of a 7x9 grid of 1.5-unit
+    squares held close (wide view angles, where xi is observable), poses
+    spread over +-25 degrees. Returns (object points (n, 63, 2), pixels
+    (n, 63, 2)) in float64."""
+    from sara_tpu_torch.calib.calibrate import _project_omni
+    from sara_tpu_torch.core import lie
+
+    rs = np.random.RandomState(seed)
+    intr = torch.tensor([1800.0, 1800.0, 640.0, 360.0, 0.0, 0.0, xi],
+                        dtype=torch.float64)
+    jj, ii = np.meshgrid(np.arange(1, 10), np.arange(1, 8))
+    obj = np.stack([jj, ii], axis=-1).reshape(-1, 2).astype(float) * 1.5
+    X = torch.from_numpy(np.concatenate([obj, np.zeros((len(obj), 1))],
+                                        1))[None]
+    objs, imgs = [], []
+    for _ in range(n):
+        yaw, pitch = np.radians(rs.uniform(-25, 25, 2))
+        R, t = board_pose(yaw, pitch, 6, 8, rs.uniform(5.0, 7.0))
+        t = t * 1.5                       # the grid's 1.5-unit squares
+        w = lie.so3_log(torch.from_numpy(R)).numpy()
+        p6 = torch.from_numpy(np.concatenate([w, t]))[None]
+        imgs.append(_project_omni(intr, p6, X)[0].numpy())
+        objs.append(obj)
+    return np.stack(objs), np.stack(imgs)
+
+
+def phase_calib(card: str, device="cuda", n_views: int = CALIB_VIEWS) -> dict:
+    """Slice E end to end, as ``python -m sara_tpu_torch.calib.cli`` runs
+    it (its ``collect_views`` and ``calibrate_views``; its image readers
+    need PIL, which this machine lacks, so the frames are rendered in
+    numpy): ``n_views`` 1280x720 views of a 6x9-inner-corner board, K =
+    (1000, 1000, 640, 360), yaw and pitch over +-35 degrees. Gates: every
+    view gives a (6, 9) grid, every corner within 0.3 px of the truth;
+    the pinhole calibration recovers fx and fy within 0.5%, cx and cy
+    within 2 px, RMS < 0.1 px; a strongly barrel-warped view yields the
+    full grid through the squares fallback, every corner within 0.7 px;
+    ``calibrate_omnidirectional`` recovers xi = 0.8 within 0.1 on 20
+    planar views through the unified model; on the card, one view's
+    ``_corner_candidates`` equals the CPU's within 1e-3 px with the same
+    mask, and the float32 calibration (the twin's production dtype) is
+    held to the float64 one (fx, fy, cx, cy within 1e-3 relative, RMS
+    within 1e-3 px); everything finite. Records ms per view split into the
+    device program, ``_assemble_grid`` and the squares fallback, ms of the
+    LM, host syncs per view and a profile of one view's device program."""
+    from sara_tpu_torch.calib import calibrate as cal
+    from sara_tpu_torch.calib import chessboard as cb
+    from sara_tpu_torch.calib import cli
+    from sara_tpu_torch.calib.squares import assemble_grid_from_squares
+    from sara_tpu_torch.utils.host import fetch, put
+
+    dev = torch.device(device)
+    sync = (torch.cuda.synchronize if dev.type == "cuda"
+            else (lambda: None))
+    rows, cols = CALIB_BOARD
+    t0 = time.perf_counter()
+    views = calib_views(n_views, device=dev)
+    out = {"views": n_views, "hw": list(CALIB_HW), "board": [rows, cols],
+           "render_s": time.perf_counter() - t0}
+
+    # The CLI's path: detect every view, then one joint calibration. The
+    # first detection and the first LM (lazy library loads, cuDNN's
+    # algorithm search) are timed apart.
+    sync()
+    t0 = time.perf_counter()
+    cb.detect_chessboard_corners(views[0][0], device=dev)
+    sync()
+    out["first_detect_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    corners = cli.collect_views(((f"view{k}", img) for k, (img, _) in
+                                 enumerate(views)), rows, cols,
+                                max_views=n_views, device=dev)
+    sync()
+    out["detect_ms_per_view"] = (time.perf_counter() - t0) * 1e3 / n_views
+    check(len(corners) == n_views,
+          f"calib: {len(corners)} of {n_views} views gave a (6, 9) grid")
+    err = [np.linalg.norm(c[:, None] - pix.reshape(-1, 2)[None], axis=-1)
+           .min(0).max() for c, (_, pix) in zip(corners, views)]
+    out["corner_err_px_max"] = float(max(err))
+    t0 = time.perf_counter()
+    res = cli.calibrate_views(corners, rows, cols, device=dev)
+    out["first_calibration_ms"] = (time.perf_counter() - t0) * 1e3
+    out["calibration_ms"] = timed_call_ms(
+        lambda: cli.calibrate_views(corners, rows, cols, device=dev), dev,
+        reps=3)
+    K = res["K"]
+    model = np.stack(np.meshgrid(np.arange(cols), np.arange(rows)),
+                     axis=-1).reshape(-1, 2).astype(np.float64)
+    obj = np.broadcast_to(model, (len(corners),) + model.shape).copy()
+    K0, obj_t, img_t, poses0, on = cal._lm_inputs(obj, np.stack(corners),
+                                                  dev)
+    intr0 = on([K0[0, 0], K0[1, 1], K0[0, 2], K0[1, 2], 0, 0, 0, 0.0])
+    out["lm_ms"] = timed_call_ms(lambda: fetch(*cal._refine(
+        intr0, poses0, obj_t, img_t, iters=30)), dev, reps=3)
+    out["K"] = [float(K[0, 0]), float(K[1, 1]), float(K[0, 2]),
+                float(K[1, 2])]
+    out["dist"] = [float(v) for v in res["dist"]]
+    out["rms"] = res["rms"]
+    # The twin's production dtype: the same corners in float32.
+    res32 = cli.calibrate_views([c.astype(np.float32) for c in corners],
+                                rows, cols, device=dev)
+    out["K_f32"] = [float(res32["K"][i, j])
+                    for i, j in ((0, 0), (1, 1), (0, 2), (1, 2))]
+    out["rms_f32"] = res32["rms"]
+
+    # The split of one view: device program (+ its one fetch), the lattice
+    # BFS, and the squares fallback run on the same candidates.
+    img = views[0][0]
+    params = cb.ChessboardParams()
+
+    def program():
+        o = cb._corner_candidates(put(img, dev), params)
+        return fetch(o["mask"], o["x"], o["y"])
+
+    m, xs, ys = program()
+    pts = np.stack([xs[m], ys[m]], axis=1)
+    out["device_program_ms"] = timed_call_ms(program, dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        cb._assemble_grid(pts)
+    out["assemble_grid_ms"] = (time.perf_counter() - t0) * 1e3 / 5
+    out["squares_fallback_ms"] = timed_call_ms(
+        lambda: assemble_grid_from_squares(img, pts, device=dev), dev, reps=3)
+    out["detect_view_ms"] = timed_call_ms(
+        lambda: cb.detect_chessboard_corners(img, device=dev), dev)
+    if dev.type == "cuda":
+        out["syncs_per_view"] = count_syncs(
+            lambda: cb.detect_chessboard_corners(img, device=dev))
+        # One view's device program on the card against the CPU's.
+        oc = cb._corner_candidates(torch.from_numpy(img), params)
+        mc = oc["mask"].numpy()
+        pc = np.stack([oc["x"].numpy()[mc], oc["y"].numpy()[mc]], axis=1)
+        d = np.linalg.norm(pts[:, None] - pc[None], axis=-1)
+        out["card_vs_cpu_px"] = float(max(d.min(1).max(), d.min(0).max()))
+        check(len(pc) == len(pts) and out["card_vs_cpu_px"] <= 1e-3,
+              f"calib: card vs CPU candidates {len(pts)} / {len(pc)}, "
+              f"{out['card_vs_cpu_px']} px")
+
+    # The squares fallback under a strong barrel warp.
+    R, t = board_pose(np.radians(12.0), np.radians(8.0), rows, cols, 12.0)
+    img_u, pix_u, _ = render_chessboard(CALIB_K, R, t, rows, cols,
+                                        hw=CALIB_HW, ss=6, device=dev)
+    dimg, forward = barrel_warp(img_u)
+    gt_d = np.stack([forward(p) for p in pix_u.reshape(-1, 2)])
+    o = cb._corner_candidates(put(dimg, dev), params)
+    m, xs, ys = fetch(o["mask"], o["x"], o["y"])
+    dpts = np.stack([xs[m], ys[m]], axis=1)
+    bfs = cb._assemble_grid(dpts)
+    out["distorted_bfs_grid"] = None if bfs is None else list(bfs.shape[:2])
+    grid = assemble_grid_from_squares(dimg, dpts, device=dev)
+    check(grid is not None and sorted(grid.shape[:2]) == [rows, cols],
+          f"calib: squares fallback grid "
+          f"{None if grid is None else grid.shape}")
+    derr = np.linalg.norm(grid.reshape(-1, 2)[:, None] - gt_d[None],
+                          axis=-1).min(0).max()
+    out["distorted_corner_err_px_max"] = float(derr)
+
+    # The unified (omnidirectional) model.
+    O, I = omni_views()
+    t0 = time.perf_counter()
+    omni = cal.calibrate_omnidirectional(O, I, device=dev)
+    out["omni_ms"] = (time.perf_counter() - t0) * 1e3
+    out["omni_xi"] = omni["xi"]
+    out["omni_rms"] = omni["rms"]
+    log("calib", json.dumps(out), f"({card})")
+
+    check(out["corner_err_px_max"] <= 0.3,
+          f"calib: corner error {out['corner_err_px_max']} px")
+    fx, fy, cx, cy = out["K"]
+    check(abs(fx - 1000) <= 5 and abs(fy - 1000) <= 5,
+          f"calib: fx, fy = {fx}, {fy}")
+    check(abs(cx - 640) <= 2 and abs(cy - 360) <= 2,
+          f"calib: cx, cy = {cx}, {cy}")
+    check(out["rms"] < 0.1, f"calib: RMS {out['rms']}")
+    check(np.allclose(out["K_f32"], out["K"], rtol=1e-3, atol=0)
+          and abs(out["rms_f32"] - out["rms"]) <= 1e-3,
+          f"calib: float32 {out['K_f32']} {out['rms_f32']} vs float64")
+    check(derr <= 0.7, f"calib: distorted corner error {derr} px")
+    check(abs(out["omni_xi"] - 0.8) <= 0.1, f"calib: xi {out['omni_xi']}")
+    check(all(np.isfinite(v) for v in out["K"] + out["dist"] + out["K_f32"]
+              + [out["rms"], out["omni_xi"], out["omni_rms"]])
+          and all(np.isfinite(c).all() for c in corners),
+          "calib: non-finite output")
+    if dev.type == "cuda":
+        profile_frame(program, out["device_program_ms"], top=10,
+                      what="calib device program (one view)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -1970,6 +2272,7 @@ def main() -> int:
     timed("global_sfm", phase_global_sfm, card)
     city, city_prob, city_part = timed("city", phase_city, card)
     timed("dist", phase_dist, card, city_prob, city_part, frames)
+    timed("calib", phase_calib, card)
     import torch.distributed as dist
 
     dist.destroy_process_group()

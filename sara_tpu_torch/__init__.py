@@ -9,13 +9,20 @@ Hopper (``ops/csrc``), with a plain PyTorch version beside it.
 Ported so far: the SIFT frontend and the brute-force matcher (Slice A),
 two-view geometry (Slice B), monocular visual odometry with bundle
 adjustment (Slice C), loop closure and global SfM (Slice D1), the
-partitioned and distributed bundle adjusters (Slice D2) and checkpoints
-(Slice D3).
+partitioned and distributed bundle adjusters (Slice D2), checkpoints
+(Slice D3) and camera calibration end to end (Slice E: edges, edge chains,
+chessboard detection, square reconstruction, pinhole and omnidirectional
+calibration, image and video readers, the typed configuration).
 
 core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3),
-          camera models (pinhole, Brown-Conrady, Kannala-Brandt, omni)
-image     separable filtering, transforms and dense warps, gradients,
-          Gaussian/DoG pyramids, color conversion
+          camera models (pinhole, Brown-Conrady, Kannala-Brandt, omni),
+          2-D geometry (hulls, RDP, clipping, exact ellipse intersection)
+image     separable and dense filtering, transforms and dense warps,
+          differential operators (Harris, Hessian, curvature),
+          Gaussian/DoG/LoG pyramids, color conversion, Canny and Hough,
+          edge chains and line segments
+calib     chessboard corners, square reconstruction, pinhole and
+          omnidirectional calibration, the CLI (``calib/cli.py``)
 features  DoG detection, orientation, field SIFT descriptors, the pipeline
 matching  brute-force GEMM matcher (ratio test + mutual check)
 mvg       minimal solvers (4/5/7/8-point, P3P), two-view geometry
@@ -28,9 +35,12 @@ sfm       union-find (native C++), feature tracks, pose graph, point cloud,
           averaging, edge scales, the global SfM pipeline
 parallel  device meshes on torch.distributed (NCCL on the card, gloo on
           the CPU), sharded BA, batched matching over pairs
-io        checkpoint / resume of the odometry state
+io        image and video readers / writers (PIL, cv2), checkpoint / resume
+          of the odometry state
 utils     trajectory metrics (Umeyama alignment, ATE), host transfers,
-          logging, roofline estimates
+          timers and traces, logging, roofline estimates, 1-D clustering,
+          ADMM
+config    the typed pipeline configuration and its JSON round trip
 viz       the self-contained HTML point-cloud viewer
 ops       top-k, small-matrix algebra and the CUDA patch-sampler kernels
 convert   carries parameters, keypoints, BA and pose-graph problems over

@@ -43,10 +43,14 @@ def _sift_from_fields(fields: dict, twin: bool) -> SIFTParams:
 def params_from_jax(obj):
     """The port's twin of a JAX ``SIFTParams``, ``DoGParams``,
     ``PyramidParams``, ``MatchParams``, ``BAOptions``, ``OdometryConfig``,
-    ``LoopClosureConfig`` or ``GlobalSfMConfig`` (same field values,
-    nested ones included; ``desc_sampler="pallas"`` becomes
+    ``LoopClosureConfig``, ``GlobalSfMConfig``, ``ChessboardParams``,
+    ``LineSegmentParams``, ``CameraConfig`` or ``PipelineConfig`` (same
+    field values, nested ones included; ``desc_sampler="pallas"`` becomes
     ``"kernel"``, and a JAX ``SIFTParams``'s ``low_precision``, which takes
     effect only on a TPU, becomes False)."""
+    from sara_tpu_torch.calib.chessboard import ChessboardParams
+    from sara_tpu_torch.config import CameraConfig, PipelineConfig
+    from sara_tpu_torch.image.edge_chains import LineSegmentParams
     from sara_tpu_torch.sfm.global_sfm import GlobalSfMConfig
     from sara_tpu_torch.sfm.loop_closure import LoopClosureConfig
     from sara_tpu_torch.sfm.odometry import OdometryConfig
@@ -73,6 +77,23 @@ def params_from_jax(obj):
         return MatchParams(**fields)
     if name == "SIFTParams":
         return _sift_from_fields(fields, twin)
+    if name == "PipelineConfig":
+        # asdict flattened the nested dataclasses; rebuild each from the
+        # object's own attributes.
+        return PipelineConfig(
+            camera=CameraConfig(**fields["camera"]),
+            pyramid=PyramidParams(**fields["pyramid"]),
+            dog=DoGParams(**fields["dog"]),
+            sift_max_orientations=obj.sift_max_orientations,
+            sift_total_capacity=obj.sift_total_capacity,
+            match_ratio=obj.match_ratio,
+            odometry=params_from_jax(obj.odometry),
+            ba=params_from_jax(obj.ba))
+    simple = {"ChessboardParams": ChessboardParams,
+              "LineSegmentParams": LineSegmentParams,
+              "CameraConfig": CameraConfig}
+    if name in simple:
+        return simple[name](**fields)
     raise TypeError(f"no port twin for {name}")
 
 

@@ -1,11 +1,14 @@
-"""Image processing (twin of ``sara_tpu/image``, the slice's part)."""
+"""Image processing (twin of ``sara_tpu/image``, the ported part)."""
 
 from sara_tpu_torch.image.filtering import (gaussian_kernel_1d,
                                             separable_conv2d, gaussian_blur)
 from sara_tpu_torch.image.transform import (resize_bilinear, downscale2,
                                             upscale2, bilinear_sample,
                                             warp_bilinear, warp_homography)
-from sara_tpu_torch.image.differential import gradient
+from sara_tpu_torch.image.differential import (gradient, gradient_polar,
+                                              laplacian, hessian,
+                                              second_moment_matrix,
+                                              harris_cornerness)
 from sara_tpu_torch.image.pyramid import (PyramidParams, GaussianPyramid,
                                           gaussian_pyramid, dog_pyramid)
 from sara_tpu_torch.image.color import rgb_to_gray, gray_from_any
@@ -14,7 +17,8 @@ __all__ = [
     "gaussian_kernel_1d", "separable_conv2d", "gaussian_blur",
     "resize_bilinear", "downscale2", "upscale2", "bilinear_sample",
     "warp_bilinear", "warp_homography",
-    "gradient",
+    "gradient", "gradient_polar", "laplacian", "hessian",
+    "second_moment_matrix", "harris_cornerness",
     "PyramidParams", "GaussianPyramid", "gaussian_pyramid", "dog_pyramid",
     "rgb_to_gray", "gray_from_any",
 ]

@@ -82,3 +82,30 @@ def gaussian_blur(image: torch.Tensor, sigma: float,
     k = np.exp(-(x * x) / (2.0 * float(sigma) ** 2))
     k = k / k.sum()
     return separable_conv2d(image, k, k)
+
+
+def conv2d(image: torch.Tensor, kernel) -> torch.Tensor:
+    """Dense 2-D convolution with replicate borders. kernel: (kh, kw)."""
+    shape = image.shape
+    x = image.reshape((-1, 1) + tuple(shape[-2:]))
+    k = _taps(kernel, x)
+    kh, kw = k.shape
+    x = F.pad(x, (kw // 2, kw // 2, kh // 2, kh // 2), mode="replicate")
+    x = F.conv2d(x, k.flip(0, 1)[None, None])
+    return x.reshape(shape[:-2] + x.shape[-2:])
+
+
+def box_blur(image: torch.Tensor, radius: int) -> torch.Tensor:
+    n = 2 * radius + 1
+    k = np.full((n,), 1.0 / n)
+    return separable_conv2d(image, k, k)
+
+
+def sobel(image: torch.Tensor):
+    """Sobel x/y derivatives: central difference along one axis, [1 2 1]/4
+    smoothing along the other."""
+    d = np.array([-1.0, 0.0, 1.0])
+    s = np.array([1.0, 2.0, 1.0]) / 4.0
+    gx = separable_conv2d(image, d, s)
+    gy = separable_conv2d(image, s, d)
+    return gx, gy

@@ -106,3 +106,18 @@ def dog_pyramid(gp: GaussianPyramid) -> GaussianPyramid:
     """Difference-of-Gaussians: adjacent-scale differences per octave."""
     dogs = [oct[1:] - oct[:-1] for oct in gp.octaves]
     return GaussianPyramid(dogs, gp.octave_scales, gp.sigmas)
+
+
+def laplacian_pyramid(gp: GaussianPyramid,
+                      params: PyramidParams = PyramidParams()
+                      ) -> GaussianPyramid:
+    """Scale-normalized LoG approximation per octave: each level's
+    5-point Laplacian times its sigma squared."""
+    from sara_tpu_torch.image.differential import laplacian
+
+    outs = []
+    for oct in gp.octaves:
+        sig = torch.as_tensor(gp.sigmas, dtype=oct.dtype,
+                              device=oct.device)[: oct.shape[0], None, None]
+        outs.append(laplacian(oct) * sig * sig)
+    return GaussianPyramid(outs, gp.octave_scales, gp.sigmas)

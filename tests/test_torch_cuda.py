@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels, of Slice B's estimators, of
-Slice C's bundle adjustment and odometry core, and of Slice D's pose-graph
-optimizer, rotation averaging, checkpoints and global SfM on the card
-(marker ``cuda``).
+Slice C's bundle adjustment and odometry core, of Slice D's pose-graph
+optimizer, rotation averaging, checkpoints and global SfM, and of Slice E's
+chessboard device program and calibration LM on the card (marker
+``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -630,3 +631,54 @@ def test_batched_pair_chunk_on_card_matches_cpu(cuda, monkeypatch):
                                                          ref[3])
     assert success.tolist() == [True, True, True, False]
     assert float((R.cpu() - ref[4])[:3].abs().max()) < 1e-3
+
+
+def _calib_view(device):
+    """One 720p view of the 6x9 board of chip_smoke's phase "calib"."""
+    import chip_smoke as cs
+
+    R, t = cs.board_pose(np.radians(20.0), np.radians(-15.0), 6, 9, 14.0)
+    return cs.render_chessboard(cs.CALIB_K, R, t, 6, 9, hw=cs.CALIB_HW,
+                                ss=6, device=device)
+
+
+@pytest.mark.cuda
+def test_corner_candidates_on_card_match_cpu(cuda):
+    """Slice E's device program (Harris, lexicographic NMS, top-k, the two
+    subpixel refinements, the x-corner test) on the card against the CPU:
+    the same masked candidates within 1e-3 px."""
+    from sara_tpu_torch.calib import chessboard as cb
+
+    img = _calib_view(cuda)[0]
+    p = cb.ChessboardParams()
+    oc = cb._corner_candidates(torch.from_numpy(img), p)
+    og = cb._corner_candidates(torch.from_numpy(img).to(cuda), p)
+    pts = []
+    for o in (oc, og):
+        m = o["mask"].cpu().numpy()
+        pts.append(np.stack([o["x"].cpu().numpy()[m],
+                             o["y"].cpu().numpy()[m]], axis=1))
+    assert len(pts[0]) == len(pts[1]) >= 54
+    d = np.linalg.norm(pts[0][:, None] - pts[1][None], axis=-1)
+    assert d.min(1).max() <= 1e-3 and d.min(0).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_calibrate_pinhole_on_card_matches_cpu(cuda):
+    """The LM on the card against the CPU in float64 (1e-6 relative on K),
+    and the card's float32 run against its float64 run (1e-3 relative)."""
+    import chip_smoke as cs
+    from sara_tpu_torch.calib import cli
+
+    corners = []
+    for img, pix in cs.calib_views(6, device=cuda):
+        corners.append(pix.reshape(-1, 2) + np.random.RandomState(
+            len(corners)).normal(scale=0.1, size=(54, 2)))
+    r_cpu = cli.calibrate_views(corners, 6, 9, device="cpu")
+    r_gpu = cli.calibrate_views(corners, 6, 9, device=cuda)
+    r_32 = cli.calibrate_views([c.astype(np.float32) for c in corners], 6, 9,
+                               device=cuda)
+    np.testing.assert_allclose(r_gpu["K"], r_cpu["K"], rtol=1e-6)
+    assert abs(r_gpu["rms"] - r_cpu["rms"]) < 1e-6
+    np.testing.assert_allclose(r_32["K"], r_gpu["K"], rtol=1e-3)
+    assert abs(r_gpu["K"][0, 0] - 1000.0) < 5

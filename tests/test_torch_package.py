@@ -44,7 +44,12 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.sfm.edge_scales, sara_tpu_torch.sfm.loop_closure, "
             "sara_tpu_torch.sfm.global_sfm, sara_tpu_torch.utils.log, "
             "sara_tpu_torch.ba.partitioned, sara_tpu_torch.parallel, "
-            "sara_tpu_torch.utils.roofline; "
+            "sara_tpu_torch.utils.roofline, sara_tpu_torch.calib, "
+            "sara_tpu_torch.calib.cli, sara_tpu_torch.calib.squares, "
+            "sara_tpu_torch.core.geometry, sara_tpu_torch.image.edges, "
+            "sara_tpu_torch.image.edge_chains, sara_tpu_torch.config, "
+            "sara_tpu_torch.utils.timing, sara_tpu_torch.utils.clustering, "
+            "sara_tpu_torch.utils.admm; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -186,14 +191,9 @@ REPLACED_NAMES = {
     "parallel/comm_model.py": {"ICI_BW", "DCN_BW"},  # NVLINK_BW, NIC_BW
     "utils/roofline.py": {"PEAK_VPU_FLOPS"},         # no TPU VPU on a GPU
 }
-# Names of partly ported modules that a later slice ports (ROADMAP E0).
-QUEUED = {
-    "image/differential.py": {"gradient_polar", "laplacian", "hessian",
-                              "second_moment_matrix", "harris_cornerness",
-                              "mean_curvature", "mean_curvature_flow"},
-    "image/filtering.py": {"conv2d", "box_blur", "sobel"},
-    "image/pyramid.py": {"laplacian_pyramid"},
-}
+# Names of partly ported modules that a later slice ports (none are left:
+# the image modules' last names came with Slice E).
+QUEUED = {}
 
 
 def _public(path):
