@@ -98,7 +98,24 @@ raises, so the script exits nonzero and prints no result line):
    px, ``calibrate_omnidirectional`` recovering xi = 0.8 within 0.1, one
    view's device program on the card equal to the CPU's; records ms per
    view and its split, the LM's ms, syncs and a profile;
-16. print the kernels line, the card line, then the result line.
+16. phase "detect_track" (Slice F, YOLO detection and tracking): the
+   yolov4-tiny architecture of ``tests/darknet_cfgs.py`` (random weights,
+   seed 3) at 416x416x3 on batches of 1 and 8 through ``darknet_forward``,
+   ``yolo_decode`` and ``nms_boxes``, a seeded 300-frame stream of up to
+   40 boxes through ``MultiObjectTracker``, and 30 frames of the
+   detector's own output through the tracker; gates: the head shapes, the
+   card's heads and NMS picks equal the CPU's, every long-lived object
+   confirmed with no identity switch, the card's track IDs the CPU's;
+   records forward ms and TFLOP/s, decode + NMS ms, tracker ms and syncs
+   per step, a profile and peak memory;
+17. phase "propagation" (Slice F, the feature and matching extras): on the
+   frame pair's keypoints and matches (no new frontend run),
+   ``propagate_matches`` at the full 8192-slot capacity, the LoG, DoH and
+   Harris-Laplace detectors, affine shapes, dense SIFT, NCC and
+   self-matching; gates: densified matches on the shift, NCC recovering
+   the shift, and every output equal to the CPU's on the same inputs;
+   records ms per call and the sweeps' device time;
+18. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -464,8 +481,8 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
                   what: str = "frame") -> None:
     """Where one call's device time goes (torch.profiler): the device's
     busy time beside the unprofiled wall time, and the kernels that take
-    the most of it. Prints "not measured" if the profiler sees no device
-    events."""
+    the most of it. Returns that summary; prints "not measured" and
+    returns None if the profiler sees no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -491,13 +508,14 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
         log(f"{what} profile: device time not measured (no device events)")
         return None
     events.sort(key=dev_us, reverse=True)
-    log(f"{what} profile", json.dumps({
+    summary = {
         "profiling_s": time.perf_counter() - t0,
         "wall_ms_unprofiled": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top": [{"name": e.key[:80], "calls": e.count,
-                 "device_ms": dev_us(e) / 1e3} for e in events[:top]]}))
-    return busy_ms
+                 "device_ms": dev_us(e) / 1e3} for e in events[:top]]}
+    log(f"{what} profile", json.dumps(summary))
+    return summary
 
 
 def sampler_requested_bytes(maps, s_idx, ys) -> int:
@@ -782,13 +800,14 @@ VO_LOOP = 100           # the circular loop's length (scripts/eval_vo.py)
 VO_STAGES = ("_detect", "_relative_pose", "_pnp", "_bundle_adjust")
 
 
-def load_render3d():
-    """``tests/render3d.py`` (numpy + scipy) from the checkout, by path."""
+def load_helper(name: str):
+    """A helper module of ``tests/`` (numpy + scipy) from the checkout, by
+    path."""
     import importlib.util
     from pathlib import Path
 
-    path = Path(__file__).resolve().parent / "tests" / "render3d.py"
-    spec = importlib.util.spec_from_file_location("render3d", path)
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -798,7 +817,7 @@ def vo_frames(n: int, hw=VO_HW, first: int = 0, loop: int = VO_LOOP):
     """Frames ``first`` .. ``first + n - 1`` of the circular loop of
     scripts/eval_vo.py (``loop`` poses, a = 2 pi i / loop, gentle yaw)
     through ``make_room(seed=1)``: (K, images, camera centres)."""
-    r3 = load_render3d()
+    r3 = load_helper("render3d")
     h, w = hw
     K = np.array([[0.94 * w, 0, w / 2], [0, 0.94 * w, h / 2], [0, 0, 1.0]])
     planes = r3.make_room(seed=1)
@@ -1652,9 +1671,10 @@ def phase_low_precision(ps, card: str) -> tuple:
         frame_ms = timed_call_ms(
             lambda: api.compute_sift_keypoints(frame_a, params),
             torch.device("cuda"))
-        busy = profile_frame(
+        prof = profile_frame(
             lambda: api.compute_sift_keypoints(frame_a, params),
             frame_ms, top=8, what=f"frontend {name}")
+        busy = prof and prof["device_busy_ms"]
         k1_ms = sum(timed_ms(lambda a=a, k=k: ps.sample_field_patches(
             *a, **k)) for a, k, _ in recorded[:len(recorded) // 2])
         n_match = int(m.count())
@@ -2233,6 +2253,513 @@ def phase_calib(card: str, device="cuda", n_views: int = CALIB_VIEWS) -> dict:
     return out
 
 
+# --- Slice F: detection and tracking, the feature and matching extras ----
+
+DETECT_HW = 416                  # yolov4-tiny's published input size
+DETECT_BATCHES = (1, 8)          # one camera; a rig's eight frames
+DETECT_SEED = 3
+TRACK_FRAMES = 300
+TRACK_LANES = 40
+DETECT_TOL = dict(atol=2e-3, rtol=1e-3)   # tests/test_nn_darknet.py:159
+
+
+def yolov4_tiny_cfg():
+    """yolov4-tiny's architecture (``tests/darknet_cfgs.py``), parsed."""
+    import tempfile
+
+    from sara_tpu_torch.nn import parse_darknet_cfg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        return parse_darknet_cfg(load_helper("darknet_cfgs").write_cfg(tmp))
+
+
+def conv_flops(params, outputs) -> float:
+    """Floating-point operations of a forward's convolutions, counted from
+    the run's own output shapes: 2 x (in channels / groups) x k x k per
+    output element."""
+    return float(sum(2.0 * o.numel() * p["w"][0].numel()
+                     for p, o in zip(params, outputs) if p is not None))
+
+
+def decode_image(yolo_outs, b: int, hw: int) -> dict:
+    """Image ``b``'s decoded boxes from every YOLO head, concatenated."""
+    from sara_tpu_torch.nn import yolo_decode
+
+    dec = [yolo_decode(f[b:b + 1], sec, hw, hw) for _, f, sec in yolo_outs]
+    return {k: torch.cat([d[k] for d in dec]) for k in dec[0]}
+
+
+def nms_of(dec: dict, max_out: int = 64):
+    """``nms_boxes`` over decoded boxes, on their device: (idx, keep)."""
+    from sara_tpu_torch.nn import nms_boxes
+
+    return nms_boxes(dec["boxes"], dec["score"], dec["mask"],
+                     max_out=max_out)
+
+
+def track_stream(n_frames: int = TRACK_FRAMES, lanes: int = TRACK_LANES,
+                 seed: int = 0):
+    """Seeded detections of up to ``lanes`` boxes per frame at constant
+    velocity, 1 px of noise on (cx, cy, w, h), 10% dropped, in a shuffled
+    order, in a 1920-px-wide view. Each object keeps to its own horizontal
+    lane, 80 px apart, and is 40-56 px tall and 56-88 px wide, so two
+    boxes are always >= 24 px (24 sigma of the noise) apart and never
+    overlap. Objects enter and leave: each
+    lane holds a sequence of objects living 60-200 frames, the first
+    appearing at frame 0-20 and each next one 10-30 frames after the last
+    has gone (longer than ``max_misses``, so a lane's old track has died
+    before the next object arrives). Returns (frames: (boxes (n, 4)
+    float32, object ids (n,)), objects: dicts of id, start, end, truth
+    (frame -> (cx, cy)))."""
+    rs = np.random.RandomState(seed)
+    objects = []
+    for lane in range(lanes):
+        t = int(rs.randint(0, 21))
+        while t < n_frames:
+            life = int(rs.randint(60, 201))
+            objects.append(dict(
+                id=len(objects), start=t, end=min(t + life, n_frames),
+                p0=np.array([rs.uniform(60.0, 1400.0), 40.0 + 80.0 * lane]),
+                v=np.array([rs.uniform(0.5, 2.0), rs.uniform(-0.05, 0.05)]),
+                size=np.array([rs.uniform(56.0, 88.0),
+                               rs.uniform(40.0, 56.0)])))
+            t += life + int(rs.randint(10, 31))
+    frames = []
+    for k in range(n_frames):
+        live = [o for o in objects if o["start"] <= k < o["end"]]
+        boxes, ids = [], []
+        for o in live:
+            if rs.rand() < 0.1:
+                continue
+            c = o["p0"] + o["v"] * (k - o["start"])
+            boxes.append(np.concatenate([c, o["size"]])
+                         + rs.normal(scale=1.0, size=4))
+            ids.append(o["id"])
+        order = rs.permutation(len(ids))
+        frames.append((np.asarray(boxes, np.float32).reshape(-1, 4)[order],
+                       np.asarray(ids, np.int64)[order]))
+    for o in objects:
+        o["truth"] = {k: o["p0"] + o["v"] * (k - o["start"])
+                      for k in range(o["start"], o["end"])}
+    return frames, objects
+
+
+def run_tracker(device, frames):
+    """``frames``' boxes through a fresh ``MultiObjectTracker`` on
+    ``device``: (per-frame outputs, ms per step, the tracker)."""
+    from sara_tpu_torch.tracking import MultiObjectTracker
+
+    dev = torch.device(device)
+    mot = MultiObjectTracker(device=dev)
+    outs = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for boxes in frames:
+        outs.append(mot.step(boxes))
+    return outs, (time.perf_counter() - t0) * 1e3 / max(len(frames), 1), mot
+
+
+def same_tracks(a, b, tol: float = 1e-3) -> tuple:
+    """Whether two runs' per-frame outputs have the same IDs in the same
+    order, and the largest box difference (px)."""
+    worst = 0.0
+    for fa, fb in zip(a, b):
+        if [i for i, _ in fa] != [i for i, _ in fb]:
+            return False, float("inf")
+        for (_, x), (_, y) in zip(fa, fb):
+            worst = max(worst, float(np.abs(x - y).max()))
+    return len(a) == len(b) and worst <= tol, worst
+
+
+def identity_check(outs, objects, radius: float = 20.0) -> dict:
+    """Each confirmed output mapped to the object present in its frame
+    whose true centre is nearest (within ``radius`` px): the objects that
+    were confirmed, and the tracks and objects seen under more than one
+    identity."""
+    by_frame = {}
+    for o in objects:
+        for k, c in o["truth"].items():
+            by_frame.setdefault(k, []).append((o["id"], c))
+    tid_obj, obj_tid = {}, {}
+    for k, out in enumerate(outs):
+        live = by_frame.get(k, [])
+        if not live:
+            continue
+        centres = np.stack([c for _, c in live])
+        for tid, box in out:
+            d = np.linalg.norm(centres - box[:2], axis=1)
+            if d.min() <= radius:
+                oid = live[int(d.argmin())][0]
+                tid_obj.setdefault(tid, set()).add(oid)
+                obj_tid.setdefault(oid, set()).add(tid)
+    return {"confirmed": set(obj_tid),
+            "tracks_on_many_objects": sorted(
+                t for t, s in tid_obj.items() if len(s) > 1),
+            "objects_under_many_tracks": sorted(
+                o for o, s in obj_tid.items() if len(s) > 1)}
+
+
+def phase_detect_track(ps, card: str, device="cuda", hw: int = DETECT_HW,
+                       batches=DETECT_BATCHES, n_frames: int = TRACK_FRAMES,
+                       lanes: int = TRACK_LANES, whole_frames: int = 30
+                       ) -> dict:
+    """Slice F's detect-and-track path at full width: yolov4-tiny
+    (``tests/darknet_cfgs.py``, the published architecture, random weights
+    from seed 3, batch-norm statistics and biases drawn off the identity
+    by ``perturb_batch_norm``) at 416x416x3 float32 on batches of 1 and 8 seeded
+    textures through ``darknet_forward``, ``yolo_decode`` per head and
+    ``nms_boxes`` (64 slots); a seeded 300-frame stream of up to 40 boxes
+    through ``MultiObjectTracker.step``; and 30 frames of the detector's
+    own NMS output through the tracker. Gates: the heads are (13, 13, 255)
+    and (26, 26, 255); the card's heads equal the port's CPU run on the
+    same inputs within atol 2e-3, rtol 1e-3; NMS picks the CPU's indices
+    from the same decoded boxes; every object present for >= min_hits + 2
+    frames is confirmed, with no identity switch; the card's track IDs
+    equal the CPU's, boxes within 1e-3 px; the whole path's output is
+    finite, with the CPU's IDs; K1 and K2 launch no time. Records forward
+    ms at each batch (CUDA events, median of 20), the convolutions' FLOPs
+    and TFLOP/s, decode + NMS ms, tracker ms and syncs per step, a profile
+    of one batch-1 forward and peak memory."""
+    from sara_tpu_torch.nn import darknet_forward, init_darknet_params
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cfg = yolov4_tiny_cfg()
+    host, _ = init_darknet_params(cfg, seed=DETECT_SEED, device="cpu")
+    host = load_helper("darknet_cfgs").perturb_batch_norm(host, DETECT_SEED)
+    cpu_params = [None if p is None else
+                  {k: torch.as_tensor(v) for k, v in p.items()} for p in host]
+    params = [None if p is None else {k: v.to(dev) for k, v in p.items()}
+              for p in cpu_params]
+    out = {"hw": hw, "batches": list(batches), "seed": DETECT_SEED}
+    gates = []                  # (passed, message), checked after the log
+    ps.reset_counts()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    for b in batches:
+        x = np.stack([texture(100 + i, hw, hw) for i in range(b)])
+        x = np.repeat(x[..., None], 3, axis=-1)      # (b, hw, hw, 3)
+        xd = torch.from_numpy(x).to(dev)
+        yolo, outs = darknet_forward(params, cfg, xd)
+        cyolo, _ = darknet_forward(cpu_params, cfg, torch.from_numpy(x))
+        shapes = sorted(tuple(f.shape[1:]) for _, f, _ in yolo)
+        gates.append((shapes == [(hw // 32, hw // 32, 255),
+                                 (hw // 16, hw // 16, 255)],
+                      f"detect: head shapes {shapes}"))
+        err = 0.0
+        for (_, f, _), (_, g, _) in zip(yolo, cyolo):
+            a, c = f.cpu().numpy(), g.numpy()
+            gates.append((np.allclose(a, c, **DETECT_TOL),
+                          f"detect: batch {b} heads card vs CPU, max abs "
+                          f"{np.abs(a - c).max()}"))
+            err = max(err, float(np.abs(a - c).max()))
+        flops = conv_flops(params, outs)
+        row = {"head_err_vs_cpu": err, "gflop": flops / 1e9}
+        if on_card:
+            ms = timed_ms(lambda: darknet_forward(params, cfg, xd), reps=20)
+            row.update(forward_ms=ms, tflop_s=flops / ms / 1e9,
+                       share_of_f32_peak=flops / ms * 1e3
+                       / H100_F32_FLOP_PER_S,
+                       bound_ms=flops / H100_F32_FLOP_PER_S * 1e3)
+        # NMS of every image against the CPU's on the same decoded boxes.
+        kept = []
+        for i in range(b):
+            dec = decode_image(yolo, i, hw)
+            idx, keep = nms_of(dec)
+            cidx, ckeep = nms_of({k: v.cpu() for k, v in dec.items()})
+            gates.append((torch.equal(keep.cpu(), ckeep)
+                          and torch.equal(idx.cpu()[ckeep], cidx[ckeep]),
+                          f"detect: NMS of image {i} (batch {b}) differs "
+                          "from the CPU's"))
+            kept.append(int(keep.sum()))
+        row["kept_per_image"] = kept
+        if on_card and b == batches[0]:
+            row["decode_nms_ms"] = timed_ms(
+                lambda: nms_of(decode_image(yolo, 0, hw)), reps=20)
+        out[f"batch{b}"] = row
+    if on_card:
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # The tracking stream, on the card and on the CPU.
+    frames, objects = track_stream(n_frames, lanes)
+    boxes = [f[0] for f in frames]
+    run_tracker(dev, boxes[:10])           # warm-up (lazy imports)
+    touts, ms, mot = run_tracker(dev, boxes)
+    couts, cms, _ = run_tracker("cpu", boxes)
+    ok, worst = same_tracks(touts, couts)
+    ident = identity_check(touts, objects)
+    long_lived = {o["id"] for o in objects
+                  if o["end"] - o["start"] >= mot.min_hits + 2}
+    out["tracking"] = {
+        "frames": n_frames, "objects": len(objects),
+        "max_boxes_per_frame": max(len(b) for b in boxes),
+        "ms_per_step": ms, "cpu_ms_per_step": cms,
+        "device_reads_per_step": mot.syncs / n_frames,
+        "card_vs_cpu_px": worst,
+        "confirmed": len(ident["confirmed"] & long_lived),
+        "long_lived": len(long_lived),
+        "tracks_on_many_objects": ident["tracks_on_many_objects"],
+        "objects_under_many_tracks": ident["objects_under_many_tracks"]}
+    if on_card:
+        probe = run_tracker(dev, boxes[:100])[2]
+        out["tracking"]["syncs_per_step"] = count_syncs(
+            lambda: probe.step(boxes[100]))
+    gates += [(long_lived <= ident["confirmed"],
+               f"track: objects never confirmed: "
+               f"{sorted(long_lived - ident['confirmed'])}"),
+              (not ident["tracks_on_many_objects"]
+               and not ident["objects_under_many_tracks"],
+               "track: identity switches"),
+              (ok, f"track: card vs CPU IDs or boxes differ ({worst} px)")]
+
+    # The whole path: 30 frames of a texture panning 4 px per frame.
+    pan = texture(7, hw, hw + 4 * whole_frames)
+    seq = np.stack([pan[:, 4 * k: 4 * k + hw] for k in range(whole_frames)])
+    seq = np.repeat(seq[..., None], 3, axis=-1)
+    dets = []
+    for s in range(0, whole_frames, batches[-1]):
+        xb = torch.from_numpy(seq[s: s + batches[-1]]).to(dev)
+        yolo, _ = darknet_forward(params, cfg, xb)
+        for i in range(xb.shape[0]):
+            dec = decode_image(yolo, i, hw)
+            idx, keep = nms_of(dec)
+            dets.append(dec["boxes"][idx[keep].long()].cpu().numpy())
+    wout, _, _ = run_tracker(dev, dets)
+    wcpu, _, _ = run_tracker("cpu", dets)
+    wok, wworst = same_tracks(wout, wcpu)
+    finite = all(np.isfinite(b).all() for b in dets) and all(
+        np.isfinite(x).all() for f in wout for _, x in f)
+    out["whole_path"] = {"frames": whole_frames,
+                         "detections_per_frame": float(np.mean(
+                             [len(d) for d in dets])),
+                         "confirmed_last_frame": len(wout[-1]),
+                         "card_vs_cpu_px": wworst}
+    counts = ps.counts()
+    out["sampler_counts"] = counts
+    gates += [(finite, "detect+track: non-finite output"),
+              (wok, f"detect+track: card vs CPU track IDs differ "
+               f"({wworst} px)"),
+              (sum(counts.values()) == 0, f"detect_track launched {counts}")]
+    log("detect_track", json.dumps(out), f"({card})")
+    for passed, msg in gates:
+        check(passed, msg)
+    if on_card:
+        x1 = torch.from_numpy(np.repeat(texture(100, hw, hw)[None, ..., None],
+                                        3, axis=-1)).to(dev)
+        profile_frame(lambda: darknet_forward(params, cfg, x1),
+                      out["batch1"]["forward_ms"], top=10,
+                      what="yolov4-tiny forward (batch 1)")
+    return out
+
+
+def kp_overlap(a, sa, b, sb, tol: float = 0.5,
+               scale_tol: float = 0.01) -> float:
+    """Share of the keypoints (positions ``a`` (N, 2), scales ``sa``) with
+    a keypoint of ``b`` within ``tol`` px at a scale within ``scale_tol``
+    relative (a Harris corner has a keypoint at each scale of one
+    position). Host arrays or CPU tensors."""
+    a, sa, b, sb = (torch.as_tensor(np.asarray(v), dtype=torch.float64)
+                    for v in (a, sa, b, sb))
+    if len(a) == 0:
+        return 1.0
+    near = torch.cdist(a, b) <= tol
+    same = torch.log(sa[:, None] / sb[None]).abs() <= scale_tol
+    return float((near & same).any(1).double().mean())
+
+
+def phase_propagation(ps, card: str, frames, device="cuda") -> dict:
+    """Slice F's feature and matching extras (E2) on the frame pair of
+    the main path, with no new frontend run: ``propagate_matches`` (32
+    seeds) at the pair's full match capacity on the keypoints and matches
+    that ``phase_main_path`` computed; ``compute_log_keypoints``,
+    ``compute_doh_keypoints`` and ``compute_harris_laplace_keypoints`` on
+    frame A at 480x640; ``adapt_affine_shapes`` on the Harris-Laplace
+    keypoints; ``dense_sift`` at step 8; ``ncc_match`` between the pair's
+    keypoints; ``self_match`` on frame A's. Gates (after the log line):
+    every densified match agrees with the 16-px shift within 1 px; NCC
+    recovers the shift for at least half of frame A's matched keypoints;
+    each detector finds keypoints; every output equals the port's CPU run
+    on the same inputs (keypoint sets by overlap, nearest within 0.5 px at
+    a scale within 1%, for >= 98% of either set; shapes and descriptors
+    within 1e-4; propagation's members and labels equal; NCC's accepted
+    matches equal as pairs of patch centres, scores within 1e-5;
+    self-matching's accepted matches equal); K1 and K2 launch no time.
+    Records ms per call (CUDA events) and the sweeps' device time (the
+    largest GEMM of a profile of ``propagate_matches``)."""
+    from sara_tpu_torch.core.types import Keypoints, Matches
+    from sara_tpu_torch.features.affine import adapt_affine_shapes
+    from sara_tpu_torch.features.dense import dense_sift
+    from sara_tpu_torch.features import multiscale as ms
+    from sara_tpu_torch.matching import propagation as prop
+    from sara_tpu_torch.matching.key_proximity import self_match
+    from sara_tpu_torch.matching.ncc import ncc_match
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    ka, kb, m = frames
+    cpu = lambda c, t: t(*(f.cpu() for f in c))
+    cka, ckb, cm = cpu(ka, Keypoints), cpu(kb, Keypoints), cpu(m, Matches)
+    h, w = FRAME_HW
+    tex = texture(1, h, w + SHIFT_PX)
+    frame_a, frame_b = tex[:, SHIFT_PX:], tex[:, :w]
+    out = {"match_capacity": m.capacity, "matches": int(m.count())}
+    gates = []                  # (passed, message), checked after the log
+    ps.reset_counts()
+
+    def timed(name, fn):
+        res, ms_ = events_ms(fn, dev)
+        out[f"{name}_ms"] = ms_
+        return res
+
+    def differ(a, b) -> int:
+        return int((a.cpu() != b).sum())
+
+    # Match propagation at the pair's capacity.
+    params = prop.PropagationParams()
+    members, labels, dens = timed("propagate_first",
+                                  lambda: prop.propagate_matches(ka, kb, m,
+                                                                 32))
+    cmem, clab, cdens = prop.propagate_matches(cka, ckb, cm, 32)
+    i, j = m.i[dens].long(), m.j[dens].long()
+    d = kb.xy[j] - ka.xy[i]
+    off = float(torch.maximum((d[:, 0] - SHIFT_PX).abs(), d[:, 1].abs())
+                .max()) if len(i) else 0.0
+    C = prop.match_consistency_matrix(ka, kb, m, params)
+    cC = prop.match_consistency_matrix(cka, ckb, cm, params)
+    scores = torch.sort(m.score[m.mask]).values
+    out.update(densified=int(dens.sum()),
+               regions=int((members.sum(1) > 0).sum()),
+               densified_off_shift_px=off,
+               consistency_pairs=int(C.sum()),
+               consistency_differ_vs_cpu=differ(C, cC),
+               tied_seed_scores=int((scores == scores[31]).sum()),
+               members_differ_vs_cpu=differ(members, cmem),
+               labels_differ_vs_cpu=differ(labels, clab),
+               densified_differ_vs_cpu=differ(dens, cdens))
+    gates += [(int(dens.sum()) > 0, "propagation: nothing densified"),
+              (off <= 1.0, f"propagation: a densified match {off} px off "
+               "the shift"),
+              (out["members_differ_vs_cpu"] == 0
+               and out["labels_differ_vs_cpu"] == 0,
+               "propagation: card vs CPU members / labels differ")]
+    if on_card:
+        out["consistency_ms"] = timed_ms(
+            lambda: prop.match_consistency_matrix(ka, kb, m, params), reps=5)
+        out["sweep_gflop"] = (2.0 * 32 * m.capacity ** 2 * params.num_iters
+                              / 1e9)
+        out["propagate_ms"] = timed_ms(
+            lambda: prop.propagate_matches(ka, kb, m, 32), reps=5)
+    del C, cC
+
+    # The scale-space detectors on frame A, and the card against the CPU.
+    for name in ("log", "doh", "harris_laplace"):
+        fn = getattr(ms, f"compute_{name}_keypoints")
+        k = timed(f"{name}_first", lambda: fn(frame_a, device=dev))
+        ck = fn(frame_a, device="cpu")
+        pa = (k.xy.cpu()[k.mask.cpu()], k.scale.cpu()[k.mask.cpu()])
+        pb = (ck.xy[ck.mask], ck.scale[ck.mask])
+        share = min(kp_overlap(*pa, *pb), kp_overlap(*pb, *pa))
+        out[f"{name}_keypoints"] = int(k.count())
+        out[f"{name}_overlap_vs_cpu"] = share
+        gates += [(int(k.count()) > 0, f"{name}: no keypoints"),
+                  (share >= 0.98, f"{name}: card vs CPU overlap {share}")]
+        if on_card:
+            out[f"{name}_ms"] = timed_call_ms(lambda: fn(frame_a, device=dev),
+                                              dev)
+    kh = k                                  # the Harris-Laplace keypoints
+
+    # Affine shapes on the card's Harris-Laplace keypoints.
+    args = (kh.xy, kh.scale, kh.mask)
+    S, conv = timed("affine", lambda: adapt_affine_shapes(frame_a, *args,
+                                                          device=dev))
+    cS, cconv = adapt_affine_shapes(frame_a, *(a.cpu() for a in args),
+                                    device="cpu")
+    valid = kh.mask.cpu()
+    serr = float((S.cpu() - cS)[valid].abs().max())
+    out.update(affine_err_vs_cpu=serr, affine_converged=int(conv.sum()),
+               affine_converged_differ_vs_cpu=differ(conv, cconv))
+    gates += [(bool(torch.isfinite(S[kh.mask]).all()) and serr <= 1e-4,
+               f"affine: card vs CPU {serr}"),
+              (out["affine_converged_differ_vs_cpu"] == 0,
+               "affine: convergence flags differ")]
+
+    # Dense SIFT at step 8.
+    xy, desc = timed("dense_sift", lambda: dense_sift(frame_a, step=8,
+                                                      device=dev))
+    cxy, cdesc = dense_sift(frame_a, step=8, device="cpu")
+    derr = float((desc.cpu() - cdesc).abs().max())
+    out.update(dense_descriptors=int(desc.shape[0]), dense_err_vs_cpu=derr)
+    gates.append((torch.equal(xy.cpu(), cxy) and derr <= 1e-4,
+                  f"dense_sift: card vs CPU {derr}"))
+
+    # NCC between the pair's keypoints.
+    nj, ns, nok = timed("ncc", lambda: ncc_match(frame_a, ka.xy, ka.mask,
+                                                 frame_b, kb.xy, kb.mask,
+                                                 device=dev))
+    cj, cs, cok = ncc_match(frame_a, cka.xy, cka.mask, frame_b, ckb.xy,
+                            ckb.mask, device="cpu")
+    matched = m.i[m.mask].long()
+    d = kb.xy[nj[matched].long()] - ka.xy[matched]
+    on = (nok[matched] & ((d[:, 0] - SHIFT_PX).abs() <= 1)
+          & (d[:, 1].abs() <= 1))
+    share = float(on.float().mean()) if len(matched) else 0.0
+    # A keypoint detected with several orientations is one patch repeated:
+    # its correlations tie up to the GEMM's last bit, which the card and
+    # the CPU round differently. So matches are compared as the pairs of
+    # patch centres they join (the twin's rounded positions).
+    def centre_pairs(kpa, kpb, j, ok):
+        ra, rb = torch.round(kpa.xy.cpu()), torch.round(kpb.xy.cpu())
+        ok = ok.cpu()
+        pairs = torch.cat([ra[ok], rb[j.cpu().long()[ok]]], 1)
+        return {tuple(p) for p in pairs.int().tolist()}
+
+    card_pairs = centre_pairs(ka, kb, nj, nok)
+    cpu_pairs = centre_pairs(cka, ckb, cj, cok)
+    both = nok.cpu() & cok
+    out.update(ncc_accepted=int(nok.sum()), ncc_shift_share=share,
+               ncc_centre_pairs=len(card_pairs),
+               ncc_pairs_differ_vs_cpu=len(card_pairs ^ cpu_pairs),
+               ncc_slots_differ_vs_cpu=differ(nok, cok),
+               ncc_score_err_vs_cpu=float((ns.cpu() - cs)[both].abs().max()))
+    gates += [(share >= 0.5, f"ncc: the shift for only {share} of the "
+               "matched keypoints"),
+              (out["ncc_pairs_differ_vs_cpu"] == 0
+               and out["ncc_score_err_vs_cpu"] <= 1e-5,
+               "ncc: card vs CPU matches differ")]
+
+    # Self-matching on frame A.
+    sm = timed("self_match", lambda: self_match(ka))
+    csm = self_match(cka)
+    both = sm.mask.cpu() & csm.mask
+    out.update(self_matches=int(sm.count()),
+               self_match_ok_differ_vs_cpu=differ(sm.mask, csm.mask),
+               self_match_j_differ_vs_cpu=int(
+                   (sm.j.cpu() != csm.j)[both].sum()))
+    gates.append((out["self_match_ok_differ_vs_cpu"] == 0
+                  and out["self_match_j_differ_vs_cpu"] == 0,
+                  "self_match: card vs CPU matches differ"))
+
+    counts = ps.counts()
+    out["sampler_counts"] = counts
+    gates.append((sum(counts.values()) == 0,
+                  f"propagation launched {counts}"))
+    if on_card:
+        # The sweeps' device time: the profile's largest GEMM (its calls
+        # are the sweeps, ``params.num_iters`` of them).
+        prof = profile_frame(lambda: prop.propagate_matches(ka, kb, m, 32),
+                             out["propagate_ms"], top=8,
+                             what="propagate_matches (M = 8192)")
+        gemms = [e for e in (prof or {"top": []})["top"]
+                 if "gemm" in e["name"].lower()]
+        out["sweep_gemm"] = gemms[0] if gemms else "not measured"
+    log("propagation", json.dumps(out), f"({card})")
+    for passed, msg in gates:
+        check(passed, msg)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -2273,6 +2800,8 @@ def main() -> int:
     city, city_prob, city_part = timed("city", phase_city, card)
     timed("dist", phase_dist, card, city_prob, city_part, frames)
     timed("calib", phase_calib, card)
+    dt = timed("detect_track", phase_detect_track, ps, card)
+    pr = timed("propagation", phase_propagation, ps, card, frames)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -2313,7 +2842,9 @@ def main() -> int:
                                 "pack_x": k1_on_k2_path,
                                 "low_precision": lp_launches,
                                 "vo": vo["sampler_counts"]["K1"],
-                                "loop": loop["sampler_counts"]["K1"]}),
+                                "loop": loop["sampler_counts"]["K1"],
+                                "detect_track": dt["sampler_counts"]["K1"],
+                                "propagation": pr["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

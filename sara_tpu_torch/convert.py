@@ -1,9 +1,10 @@
 """Carry state over from the JAX package.
 
-The port has no learned weights; what a user carries over from
-``sara_tpu`` is its static configuration (SIFT, matcher, bundle
-adjustment, odometry, loop-closure and global-SfM settings), its keypoint
-sets, and its bundle-adjustment and pose-graph problems. The converters
+What a user carries over from ``sara_tpu`` is its Darknet parameters
+(HWIO convolution weights become OIHW), its static configuration (SIFT,
+matcher, bundle adjustment, odometry, loop-closure and global-SfM
+settings), its keypoint sets, and its bundle-adjustment and pose-graph
+problems. The converters
 are duck-typed (``dataclasses.asdict`` or ``_asdict`` and the class name;
 numpy arrays), so this module imports nothing of JAX or ``sara_tpu``.
 """
@@ -153,3 +154,24 @@ def pose_graph_problem_from_numpy(fields,
             t = t.to(dtype)
         out.append(t.to(dev))
     return PoseGraphProblem(*out)
+
+
+def darknet_params_from_jax(params, device: str | torch.device | None = None):
+    """The port's Darknet parameter list from the JAX package's (one dict
+    of arrays per layer, None for layers without weights; convolution
+    weights HWIO): the same values, convolution weights OIHW, float32
+    tensors on ``device`` (None = the CUDA device)."""
+    from sara_tpu_torch.nn.darknet import _conv_weight
+
+    dev = resolve_device(device)
+    out = []
+    for p in params:
+        if p is None:
+            out.append(None)
+            continue
+        q = {k: torch.as_tensor(np.array(v, np.float32)).to(dev)
+             for k, v in p.items() if k != "w"}
+        q["w"] = _conv_weight(np.asarray(p["w"], np.float32)
+                              .transpose(3, 2, 0, 1), dev)
+        out.append(q)
+    return out

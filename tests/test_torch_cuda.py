@@ -682,3 +682,100 @@ def test_calibrate_pinhole_on_card_matches_cpu(cuda):
     assert abs(r_gpu["rms"] - r_cpu["rms"]) < 1e-6
     np.testing.assert_allclose(r_32["K"], r_gpu["K"], rtol=1e-3)
     assert abs(r_gpu["K"][0, 0] - 1000.0) < 5
+
+
+@pytest.mark.cuda
+def test_darknet_forward_and_nms_on_card_match_cpu(cuda, tmp_path):
+    """yolov4-tiny (the repository's copy of the published architecture)
+    at 160x160 on a batch of 2, with the batch-norm statistics off the
+    identity: every layer on the card against the CPU within the JAX
+    package's tolerance (atol 2e-3, rtol 1e-3), and NMS on the card
+    picking the CPU's boxes from the same decoded heads."""
+    from darknet_cfgs import perturb_batch_norm, write_cfg
+    from sara_tpu_torch.nn import (darknet_forward, init_darknet_params,
+                                   nms_boxes, parse_darknet_cfg, yolo_decode)
+
+    cfg = parse_darknet_cfg(write_cfg(tmp_path))
+    host, _ = init_darknet_params(cfg, seed=3, device="cpu")
+    host = perturb_batch_norm(host, 2)
+    x = np.random.RandomState(0).rand(2, 160, 160, 3).astype(np.float32)
+    outs = []
+    for dev in ("cpu", cuda):
+        params = [None if p is None else
+                  {k: torch.as_tensor(v).to(dev) for k, v in p.items()}
+                  for p in host]
+        outs.append(darknet_forward(params, cfg, torch.from_numpy(x).to(dev)))
+    (cy, co), (gy, go) = outs
+    assert len(co) == len(go) == len(cfg) - 1
+    for a, b in zip(co, go):
+        np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), atol=2e-3,
+                                   rtol=1e-3)
+    for (_, f, sec) in gy:
+        dec = yolo_decode(f[1:2], sec, 160, 160)
+        idx, keep = nms_boxes(dec["boxes"], dec["score"], dec["mask"])
+        cidx, ckeep = nms_boxes(*(dec[k].cpu() for k in ("boxes", "score",
+                                                         "mask")))
+        assert torch.equal(keep.cpu(), ckeep) and keep.any()
+        assert torch.equal(idx.cpu()[ckeep], cidx[ckeep])
+
+
+@pytest.mark.cuda
+def test_tracker_on_card_matches_cpu(cuda):
+    """chip_smoke's 40-lane stream (100 frames) through the tracker on the
+    card and on the CPU: the same IDs every frame, boxes within 1e-3 px,
+    at most two device reads per step."""
+    import chip_smoke as cs
+
+    frames, _ = cs.track_stream(n_frames=100)
+    boxes = [f[0] for f in frames]
+    gpu, _, mot = cs.run_tracker(cuda, boxes)
+    cpu, _, _ = cs.run_tracker("cpu", boxes)
+    ok, worst = cs.same_tracks(gpu, cpu)
+    assert ok, worst
+    assert mot.syncs <= 2 * len(boxes)
+    assert sum(len(o) for o in gpu) > 1000
+
+
+@pytest.mark.cuda
+def test_propagation_on_card_matches_cpu(cuda):
+    """Match propagation on a similarity-warped scene of 1,024 match slots
+    (700 inliers, 200 outliers): the consistency matrix, members, labels
+    and densified mask on the card equal the CPU's."""
+    from sara_tpu_torch.core.types import Keypoints, Matches
+    from sara_tpu_torch.matching import (match_consistency_matrix,
+                                         propagate_matches)
+
+    rs = np.random.RandomState(0)
+    cap, n_in, n_out = 1024, 700, 200
+    th, s = 0.3, 1.2
+    R = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    xa = rs.uniform(0, 600, (n_in + n_out, 2))
+    xb = s * xa @ R.T + [30.0, -12.0]
+    xb[n_in:] = rs.uniform(0, 600, (n_out, 2))
+    n = n_in + n_out
+
+    def kp(xy, rot, scale):
+        pad = lambda a: np.pad(a, [(0, cap - n)] + [(0, 0)] * (a.ndim - 1))
+        return dict(xy=pad(xy).astype(np.float32),
+                    scale=np.full(cap, 5.0 * scale, np.float32),
+                    orientation=np.full(cap, rot, np.float32),
+                    response=np.zeros(cap, np.float32),
+                    descriptors=np.zeros((cap, 4), np.float32),
+                    mask=np.arange(cap) < n)
+
+    idx = np.pad(np.arange(n), (0, cap - n)).astype(np.int32)
+    m = dict(i=idx, j=idx.copy(),
+             score=np.pad(rs.permutation(n) / n + 0.1,
+                          (0, cap - n)).astype(np.float32),
+             mask=np.arange(cap) < n)
+    res = []
+    for dev in ("cpu", cuda):
+        on = lambda d: {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+        ka, kb = Keypoints(**on(kp(xa, 0.0, 1.0))), Keypoints(
+            **on(kp(xb, th, s)))
+        mm = Matches(**on(m))
+        res.append((match_consistency_matrix(ka, kb, mm),
+                    *propagate_matches(ka, kb, mm, num_seeds=32)))
+    for a, b in zip(*res):
+        assert torch.equal(b.cpu(), a)
+    assert res[0][3].sum() > 400

@@ -49,7 +49,13 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.core.geometry, sara_tpu_torch.image.edges, "
             "sara_tpu_torch.image.edge_chains, sara_tpu_torch.config, "
             "sara_tpu_torch.utils.timing, sara_tpu_torch.utils.clustering, "
-            "sara_tpu_torch.utils.admm; "
+            "sara_tpu_torch.utils.admm, sara_tpu_torch.nn, "
+            "sara_tpu_torch.tracking, sara_tpu_torch.io.nuscenes, "
+            "sara_tpu_torch.io.features_io, sara_tpu_torch.viz.draw, "
+            "sara_tpu_torch.features.multiscale, "
+            "sara_tpu_torch.features.affine, sara_tpu_torch.features.dense, "
+            "sara_tpu_torch.matching.ncc, "
+            "sara_tpu_torch.matching.key_proximity; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
