@@ -115,7 +115,24 @@ raises, so the script exits nonzero and prints no result line):
    self-matching; gates: densified matches on the shift, NCC recovering
    the shift, and every output equal to the CPU's on the same inputs;
    records ms per call and the sweeps' device time;
-18. print the kernels line, the card line, then the result line.
+18. phase "e3" (the last image and contour modules) at 480x640 on frame A
+   of the frame pair: ``deriche_blur``, ``otsu_threshold``,
+   ``adaptive_threshold``, ``label_connected_components`` on the Otsu
+   mask, ``watershed`` from grid markers, ``slic``, ``gemm_conv2d`` (7x7),
+   ``signed_distance`` of a disc of radius 100, a 50-step ``NarrowBand``
+   curvature flow and ``suzuki_abe_borders`` on the card's CCL mask; gates:
+   each result equals the port's CPU run on the same inputs (labels and
+   contours exactly, SLIC's labels for >= 99.9% of pixels with centres
+   within 1e-3 px, the float maps within 1e-5 relative or 1e-4); records
+   ms, device operations, busy / idle and syncs of each function;
+19. phase "demos" (the demo twins ``examples/torch_*.py``): the six demos
+   through their ``main``, on the card, at their default widths (20
+   synthetic VO frames, 8 SfM views), each gated on its result against the
+   synthetic truth (the 16-px shift, the inlier shares, the homography's
+   corners, the rotation, the BA's RMS, the VO's ATE; the SfM's edges and
+   the ATE of the float64 solution of its own BA problem, its float32 ATE
+   logged: ROADMAP §3, F6);
+20. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -480,8 +497,9 @@ def phase_packed_path(ps, recorded):
 def profile_frame(fn, wall_ms: float, top: int = 12,
                   what: str = "frame") -> None:
     """Where one call's device time goes (torch.profiler): the device's
-    busy time beside the unprofiled wall time, and the kernels that take
-    the most of it. Returns that summary; prints "not measured" and
+    busy time beside the unprofiled wall time, the count of device
+    operations (kernel launches, copies and memsets) and the kernels that
+    take the most of it. Returns that summary; prints "not measured" and
     returns None if the profiler sees no device events."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -512,6 +530,7 @@ def profile_frame(fn, wall_ms: float, top: int = 12,
         "profiling_s": time.perf_counter() - t0,
         "wall_ms_unprofiled": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "device_ops": sum(e.count for e in events),
         "top": [{"name": e.key[:80], "calls": e.count,
                  "device_ms": dev_us(e) / 1e3} for e in events[:top]]}
     log(f"{what} profile", json.dumps(summary))
@@ -2760,6 +2779,361 @@ def phase_propagation(ps, card: str, frames, device="cuda") -> dict:
     return out
 
 
+E3_SIGMA = 2.0                   # deriche_blur
+E3_SLIC = dict(grid=16, iters=10)
+E3_CONV = 7                      # gemm_conv2d's kernel side
+E3_DISC = 100.0                  # signed_distance's disc radius, px
+E3_MARKER_STEP = 48              # watershed markers: one per 48 x 48 cell
+E3_FLOW = dict(steps=50, dt=0.1, band=6.0)   # NarrowBand curvature flow
+
+
+def e3_inputs(hw=FRAME_HW, seed: int = 9) -> dict:
+    """Phase "e3"'s inputs: frame A of the frame pair, a seeded 7x7 kernel,
+    watershed markers on a grid, and a disc's mask and signed distance
+    centred in the frame."""
+    h, w = hw
+    frame = texture(1, h, w + SHIFT_PX)[:, SHIFT_PX:].copy()
+    rs = np.random.RandomState(seed)
+    kernel = rs.normal(size=(E3_CONV, E3_CONV)).astype(np.float32)
+    markers = np.zeros((h, w), np.int32)
+    ys = np.arange(E3_MARKER_STEP // 2, h, E3_MARKER_STEP)
+    xs = np.arange(E3_MARKER_STEP // 2, w, E3_MARKER_STEP)
+    markers[np.ix_(ys, xs)] = np.arange(1, len(ys) * len(xs) + 1).reshape(
+        len(ys), len(xs))
+    yy, xx = np.mgrid[0:h, 0:w]
+    radius = min(E3_DISC, 0.4 * min(h, w))
+    dist = np.hypot(xx - w / 2, yy - h / 2)
+    return dict(frame=frame, kernel=kernel, markers=markers,
+                disc=dist < radius,
+                phi=(dist - radius).astype(np.float32))
+
+
+def curvature_flow(phi, device):
+    """E3_FLOW's band-gated curvature flow of ``phi`` on ``device``: the
+    NarrowBand after its steps (phi, reinitialisations, device reads)."""
+    from sara_tpu_torch.image import levelsets as lv
+
+    nb = lv.NarrowBand(phi, band_radius=E3_FLOW["band"], device=device)
+    nb.run(lv.curvature_motion, E3_FLOW["dt"], E3_FLOW["steps"])
+    return nb
+
+
+def phase_e3(ps, card: str, device="cuda", hw=FRAME_HW) -> dict:
+    """Slice E3 (the last image modules) at the frame size users feed the
+    frontend, on frame A of the frame pair: ``deriche_blur`` (sigma 2),
+    ``otsu_threshold``, ``adaptive_threshold``, ``label_connected_components``
+    on the Otsu mask, ``watershed`` from a grid of markers, ``slic`` (grid
+    16, 10 iterations), ``gemm_conv2d`` with a 7x7 kernel, ``signed_distance``
+    of a disc of radius 100, a 50-step ``NarrowBand`` curvature flow and
+    ``suzuki_abe_borders`` on the card's CCL mask. Each result is held to
+    the port's CPU run on the same inputs (a stage fed by an earlier one
+    takes the card's output there too): the labels of CCL and watershed and
+    the contours equal; SLIC's labels equal for >= 99.9% of the pixels
+    (``index_add_``'s float atomics sum the centres in another order),
+    centres within 1e-3 px; Deriche and ``gemm_conv2d`` within 1e-5
+    relative; the distances and the flow within 1e-4, the flow with the
+    same reinitialisations; Otsu's threshold within 1e-6 and its mask
+    equal; the sampler launches no time. Records for each function ms
+    (median of 5 after a synchronize), device operations (launches, copies,
+    memsets) and busy / idle from one profile, and host syncs."""
+    from sara_tpu_torch.core.contours import suzuki_abe_borders
+    from sara_tpu_torch.image import levelsets as lv
+    from sara_tpu_torch.image import segmentation as sg
+    from sara_tpu_torch.image.deriche import deriche_blur
+    from sara_tpu_torch.image.im2col import gemm_conv2d
+    from sara_tpu_torch.image.slic import slic
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    inp = e3_inputs(hw)
+    dv = {k: torch.as_tensor(v).to(dev) for k, v in inp.items()}
+    ch = {k: torch.as_tensor(v) for k, v in inp.items()}
+    rows, gates = {}, []
+
+    def measure(name, fn):
+        """``fn``'s result on ``dev``; its ms (median of 5 more calls, each
+        after a synchronize), device operations and busy / idle from one
+        profile, and host syncs."""
+        res = fn()
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        sync()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        row = {"ms": float(np.median(times))}
+        if on_card:
+            prof = profile_frame(fn, row["ms"], top=5, what=f"e3 {name}")
+            row.update({k: prof[k] for k in ("device_ops", "device_busy_ms",
+                                            "idle_share", "profiling_s")}
+                       if prof else {"device_ops": "not measured"})
+            row["syncs"] = count_syncs(fn)["syncs"]
+        rows[name] = row
+        return res
+
+    def rel(a, b) -> float:
+        a, b = a.cpu().double(), b.double()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    ps.reset_counts()
+    blur = measure("deriche_blur", lambda: deriche_blur(dv["frame"],
+                                                        E3_SIGMA))
+    err = rel(blur, deriche_blur(ch["frame"], E3_SIGMA))
+    gates.append((err <= 1e-5, f"deriche_blur: card vs CPU {err}"))
+    rows["deriche_blur"]["rel_err_vs_cpu"] = err
+
+    thr, mask = measure("otsu_threshold",
+                        lambda: sg.otsu_threshold(dv["frame"]))
+    cthr, cmask = sg.otsu_threshold(ch["frame"])
+    rows["otsu_threshold"].update(threshold=float(thr),
+                                  threshold_cpu=float(cthr),
+                                  foreground=int(mask.sum()))
+    gates.append((abs(float(thr) - float(cthr)) <= 1e-6
+                  and torch.equal(mask.cpu(), cmask),
+                  f"otsu: card {float(thr)} vs CPU {float(cthr)}"))
+
+    amask = measure("adaptive_threshold",
+                    lambda: sg.adaptive_threshold(dv["frame"]))
+    differ = int((amask.cpu() != sg.adaptive_threshold(ch["frame"])).sum())
+    rows["adaptive_threshold"]["differ_vs_cpu"] = differ
+    gates.append((differ == 0, f"adaptive_threshold: {differ} pixels differ"))
+
+    lab = measure("label_connected_components",
+                  lambda: sg.label_connected_components(mask))
+    clab = sg.label_connected_components(mask.cpu())
+    n_comp = int(torch.unique(clab).numel()) - 1
+    rows["label_connected_components"].update(
+        components=n_comp, differ_vs_cpu=int((lab.cpu() != clab).sum()))
+    gates.append((torch.equal(lab.cpu(), clab) and n_comp > 0,
+                  "label_connected_components: card vs CPU labels differ"))
+
+    ws = measure("watershed", lambda: sg.watershed(dv["frame"],
+                                                   dv["markers"]))
+    cws = sg.watershed(ch["frame"], ch["markers"])
+    rows["watershed"].update(unlabelled=int((cws == 0).sum()),
+                             differ_vs_cpu=int((ws.cpu() != cws).sum()))
+    gates.append((torch.equal(ws.cpu(), cws),
+                  "watershed: card vs CPU labels differ"))
+
+    slab, cen = measure("slic", lambda: slic(dv["frame"], **E3_SLIC))
+    cslab, ccen = slic(ch["frame"], **E3_SLIC)
+    same = float((slab.cpu() == cslab).double().mean())
+    cerr = float((cen.cpu() - ccen)[..., :2].abs().max())
+    rows["slic"].update(label_agreement=same, centre_err_px=cerr,
+                        superpixels=int(cen.shape[0] * cen.shape[1]))
+    gates.append((same >= 0.999 and cerr <= 1e-3,
+                  f"slic: {same} of labels equal, centres {cerr} px"))
+
+    conv = measure("gemm_conv2d", lambda: gemm_conv2d(dv["frame"],
+                                                      dv["kernel"]))
+    err = rel(conv, gemm_conv2d(ch["frame"], ch["kernel"]))
+    rows["gemm_conv2d"]["rel_err_vs_cpu"] = err
+    gates.append((err <= 1e-5, f"gemm_conv2d: card vs CPU {err}"))
+
+    sd = measure("signed_distance", lambda: lv.signed_distance(dv["disc"]))
+    csd = lv.signed_distance(ch["disc"])
+    err = float((sd.cpu() - csd).abs().max())
+    rows["signed_distance"].update(err_vs_cpu=err, row_steps=4 * 4 * hw[0])
+    gates.append((err <= 1e-4, f"signed_distance: card vs CPU {err}"))
+
+    nb = measure("narrow_band_flow", lambda: curvature_flow(dv["phi"], dev))
+    cnb = curvature_flow(ch["phi"], cpu)
+    err = float((nb.phi.cpu() - cnb.phi).abs().max())
+    rows["narrow_band_flow"].update(err_vs_cpu=err, reinits=nb.reinits,
+                                    reinits_cpu=cnb.reinits,
+                                    band_reads=nb.syncs)
+    gates.append((err <= 1e-4 and nb.reinits == cnb.reinits,
+                  f"narrow band: card vs CPU {err}, reinits {nb.reinits} "
+                  f"vs {cnb.reinits}"))
+
+    fg = lab > 0
+    borders = measure("suzuki_abe_borders", lambda: suzuki_abe_borders(fg))
+    cborders = suzuki_abe_borders(clab > 0)
+    same = sorted(borders) == sorted(cborders) and all(
+        (b.parent, int(b.type)) == (cborders[k].parent, int(cborders[k].type))
+        and np.array_equal(np.asarray(b.curve), np.asarray(cborders[k].curve))
+        for k, b in borders.items())
+    rows["suzuki_abe_borders"].update(borders=len(borders))
+    gates.append((same, "suzuki_abe_borders: card vs CPU borders differ"))
+
+    counts = ps.counts()
+    out = {"hw": list(hw), "functions": rows, "sampler_counts": counts}
+    gates.append((sum(counts.values()) == 0, f"e3 launched {counts}"))
+    log("e3", json.dumps(out), f"({card})")
+    for passed, msg in gates:
+        check(passed, msg)
+    return out
+
+
+# The six demo twins, by name: (file in examples/, the arguments phase
+# "demos" gives it beside --out and --cpu).
+DEMOS = {
+    "two_view": ("torch_two_view_demo", []),
+    "homography": ("torch_homography_estimation_demo", []),
+    "essential_5_point": ("torch_essential_5_point_demo", []),
+    "two_view_ba": ("torch_two_view_ba_demo", []),
+    "visual_odometry": ("torch_visual_odometry_demo", ["--synthetic"]),
+    "global_sfm": ("torch_global_sfm_demo", []),
+}
+DEMO_VO_FRAMES = 20
+DEMO_SFM_VIEWS = 8
+
+
+def load_demo(name: str):
+    """The module of a demo twin in ``examples/``, by path."""
+    import importlib.util
+    from pathlib import Path
+
+    file = DEMOS[name][0]
+    path = Path(__file__).resolve().parent / "examples" / f"{file}.py"
+    spec = importlib.util.spec_from_file_location(file, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def demo_failures(name: str, out: dict, width: int = 640,
+                  views: int = DEMO_SFM_VIEWS) -> list:
+    """The gates a demo twin's result must pass, against the synthetic
+    truth of its default input; returns the messages of those it fails.
+    ``width`` is the synthetic frame's, ``views`` the SfM demo's."""
+    bad = []
+
+    def need(ok, msg):
+        if not ok:
+            bad.append(f"{name}: {msg}")
+
+    if name == "two_view":
+        m, res = out["matches"], out["ransac"]
+        i, j = m.i[m.mask].long(), m.j[m.mask].long()
+        d = out["kb"].xy[j] - out["ka"].xy[i]
+        on = ((d[:, 0] - SHIFT_PX).abs() <= 1) & (d[:, 1].abs() <= 1)
+        share = float(on.float().mean()) if len(i) else 0.0
+        n, inl = int(m.count()), int(res.num_inliers)
+        out.update(on_shift=share, inlier_share=inl / max(n, 1))
+        need(n >= 50 and share >= 0.9, f"{n} matches, {share} on the shift")
+        need(bool(res.success) and inl >= 0.9 * n, f"{inl} of {n} inliers")
+    elif name == "homography":
+        n, inl = int(out["matches"].count()), int(out["ransac"].num_inliers)
+        err = float(out["corner_err"].max())
+        need(bool(out["ransac"].success) and inl >= 0.8 * n,
+             f"{inl} of {n} inliers")
+        need(err <= 0.02 * width, f"corner transfer error {err} px")
+    elif name == "essential_5_point":
+        n, inl = out["matches"], out["inliers"]
+        # The synthetic view is a plane's homography, so two motions explain
+        # it equally: the rotation is gated, the translation direction only
+        # logged.
+        need(out["success"] and inl >= 0.8 * n, f"{inl} of {n} inliers")
+        need(out["rotation_err_deg"] <= 2.0,
+             f"rotation error {out['rotation_err_deg']} deg")
+        need(out["sampson_median"] <= 1e-3,
+             f"median Sampson residual {out['sampson_median']}")
+        need(out["cheiral"] >= 0.5 * inl, f"{out['cheiral']} cheiral points")
+    elif name == "two_view_ba":
+        need(out["success"], "relative pose failed")
+        need(out.get("points", 0) >= 30, f"{out.get('points')} points")
+        need(out.get("rms1", 1e9) <= min(out.get("rms0", 0.0) + 1e-6, 0.5),
+             f"RMS {out.get('rms0')} -> {out.get('rms1')} px")
+    elif name == "visual_odometry":
+        added = [ok for _, ok, _ in out["frames"]]
+        need(all(added), f"frames rejected: {added.count(False)}")
+        need(out["ate"] <= 0.05 and out["points"] > 100,
+             f"ATE {out['ate']}, {out['points']} points")
+    elif name == "global_sfm":
+        # The float32 BA stalls short of its optimum where summation order
+        # says, in both packages (ROADMAP §3, F6): its ATE is logged, and
+        # the float64 solution of the same problem is gated.
+        info = out["ba_info"]
+        ate64, cost64 = sfm_float64_solution(out)
+        out.update(ate_float64=ate64, ba_cost_float64=cost64,
+                   ba_initial_cost=float(info["initial_cost"]),
+                   ba_final_cost=float(info["final_cost"]))
+        need(out["edges"] >= views - 1 and out["points"] > 100,
+             f"{out['edges']} edges, {out['points']} points")
+        need(out["ba_final_cost"] < out["ba_initial_cost"],
+             f"BA cost {out['ba_initial_cost']} -> {out['ba_final_cost']}")
+        need(ate64 <= 0.05, f"float64 BA of the same problem: ATE {ate64} "
+             f"(float32 {out['ate']})")
+    return bad
+
+
+def sfm_float64_solution(out: dict):
+    """The global SfM demo's own BA problem (``out["ba_problem"]``, as
+    triangulation handed it over) solved in float64 where it lies, with
+    the pipeline's BA options: (ATE of its centres against
+    ``out["centers"]``, its final cost). It holds every stage before the
+    BA, and the BA's model, to the truth without the float32 stall."""
+    from sara_tpu_torch.ba import bundle_adjust
+    from sara_tpu_torch.core import lie
+    from sara_tpu_torch.sfm.global_sfm import GlobalSfMConfig
+    from sara_tpu_torch.utils import ate_rmse
+
+    prob = out["ba_problem"]
+    prob = prob._replace(**{k: getattr(prob, k).double()
+                            for k in ("poses", "points", "intrinsics", "uv")})
+    res, info = bundle_adjust(prob, GlobalSfMConfig().ba_options)
+    poses = res.poses.cpu()
+    R = lie.so3_exp(poses[:, :3])
+    centers = -(R.transpose(1, 2) @ poses[:, 3:, None])[..., 0]
+    return (ate_rmse(centers.numpy(), out["centers"]),
+            float(info["final_cost"]))
+
+
+def phase_demos(ps, card: str, device="cuda", width: int = 640,
+                vo_frames: int = DEMO_VO_FRAMES,
+                sfm_views: int = DEMO_SFM_VIEWS) -> dict:
+    """Slice E6: the six demo twins in ``examples/`` through their
+    ``main(argv)``, as a user runs them, on their default inputs (the
+    synthetic pair at ``width``, 640 by default; ``vo_frames`` synthetic VO
+    frames; ``sfm_views`` rendered views), each gated on its result against
+    the synthetic truth (``demo_failures``). On the CPU ``--cpu`` is passed;
+    on the card nothing is, so each twin takes the card itself. Records
+    each demo's seconds, its printed numbers and the sampler's launches
+    (0: the demos take the default gather sampler)."""
+    import contextlib
+    import io
+    import tempfile
+
+    extra = {"visual_odometry": ["--max-frames", str(vo_frames)],
+             "global_sfm": ["--views", str(sfm_views)]}
+    sized = ("two_view", "homography", "essential_5_point", "two_view_ba")
+    out, bad = {}, []
+    ps.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (_, args) in DEMOS.items():
+            argv = list(args) + extra.get(name, [])
+            if name in sized:
+                argv += ["--width", str(width)]
+            if name != "essential_5_point":
+                argv += ["--out", f"{tmp}/{name}"]
+            if torch.device(device).type == "cpu":
+                argv.append("--cpu")
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                res = load_demo(name).main(argv)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            bad += demo_failures(name, res, width, sfm_views)
+            out[name] = {"s": secs, "argv": argv,
+                         "printed": printed.getvalue().strip().splitlines(),
+                         **{k: v for k, v in res.items()
+                            if isinstance(v, (int, float, bool, str))}}
+            log(f"demo {name}: {secs:.2f} s", json.dumps(out[name]))
+    out["sampler_counts"] = ps.counts()
+    log("demos", json.dumps({k: out[k]["s"] for k in DEMOS}),
+        f"sampler {json.dumps(out['sampler_counts'])} ({card})")
+    check(not bad, "; ".join(bad))
+    check(sum(out["sampler_counts"].values()) == 0,
+          f"demos launched {out['sampler_counts']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -2802,6 +3176,8 @@ def main() -> int:
     timed("calib", phase_calib, card)
     dt = timed("detect_track", phase_detect_track, ps, card)
     pr = timed("propagation", phase_propagation, ps, card, frames)
+    e3 = timed("e3", phase_e3, ps, card)
+    demos = timed("demos", phase_demos, ps, card)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -2844,7 +3220,9 @@ def main() -> int:
                                 "vo": vo["sampler_counts"]["K1"],
                                 "loop": loop["sampler_counts"]["K1"],
                                 "detect_track": dt["sampler_counts"]["K1"],
-                                "propagation": pr["sampler_counts"]["K1"]}),
+                                "propagation": pr["sampler_counts"]["K1"],
+                                "e3": e3["sampler_counts"]["K1"],
+                                "demos": demos["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

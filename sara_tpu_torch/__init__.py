@@ -6,21 +6,25 @@ twin; it imports ``torch`` and numpy and nothing of JAX or ``sara_tpu``.
 Every Pallas kernel of the reference becomes a kernel written by hand for
 Hopper (``ops/csrc``), with a plain PyTorch version beside it.
 
-Ported so far: the SIFT frontend and the brute-force matcher (Slice A),
-two-view geometry (Slice B), monocular visual odometry with bundle
-adjustment (Slice C), loop closure and global SfM (Slice D1), the
-partitioned and distributed bundle adjusters (Slice D2), checkpoints
-(Slice D3) and camera calibration end to end (Slice E: edges, edge chains,
-chessboard detection, square reconstruction, pinhole and omnidirectional
-calibration, image and video readers, the typed configuration).
+Every module of ``sara_tpu`` has its twin here: the SIFT frontend and the
+brute-force matcher (Slice A), two-view geometry (Slice B), monocular
+visual odometry with bundle adjustment (Slice C), loop closure and global
+SfM (Slice D1), the partitioned and distributed bundle adjusters (Slice
+D2), checkpoints (Slice D3), camera calibration end to end (Slice E),
+detection, tracking and the feature extras (Slice F), and contours,
+segmentation, superpixels, Deriche smoothing, GEMM convolution and level
+sets (E3). The demos in ``examples/`` have twins there, ``torch_*.py``.
 
 core      Keypoints / Matches containers, polynomial roots, SO(3)/SE(3)/Sim(3),
           camera models (pinhole, Brown-Conrady, Kannala-Brandt, omni),
-          2-D geometry (hulls, RDP, clipping, exact ellipse intersection)
+          2-D geometry (hulls, RDP, clipping, exact ellipse intersection),
+          contours (border following, boundaries, circle fit, polylines)
 image     separable and dense filtering, transforms and dense warps,
           differential operators (Harris, Hessian, curvature),
           Gaussian/DoG/LoG pyramids, color conversion, Canny and Hough,
-          edge chains and line segments
+          edge chains and line segments, Deriche smoothing, im2col GEMM
+          convolution, Otsu / adaptive thresholds, watershed and CCL,
+          SLIC superpixels, level sets (fast sweeping, fluxes, narrow band)
 calib     chessboard corners, square reconstruction, pinhole and
           omnidirectional calibration, the CLI (``calib/cli.py``)
 features  DoG detection, orientation, field SIFT descriptors, the pipeline

@@ -1,4 +1,5 @@
-"""Core typed containers (twin of ``sara_tpu/core``, the slice's part)."""
+"""Core typed containers (twin of ``sara_tpu/core``; ``geometry`` and
+``contours`` are imported by module, as in the twin)."""
 
 from sara_tpu_torch.core.types import (Keypoints, Matches, concat_keypoints,
                                        take_keypoints)

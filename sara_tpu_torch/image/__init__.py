@@ -1,4 +1,5 @@
-"""Image processing (twin of ``sara_tpu/image``, the ported part)."""
+"""Image processing (twin of ``sara_tpu/image``; its other modules are
+imported by module, as in the twin)."""
 
 from sara_tpu_torch.image.filtering import (gaussian_kernel_1d,
                                             separable_conv2d, gaussian_blur)

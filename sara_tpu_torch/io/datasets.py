@@ -3,7 +3,8 @@
 Twin of ``sara_tpu/io/datasets.py`` (reference:
 cpp/src/DO/Sara/Datasets/Strecha/Utilities.hpp:25
 ``read_internal_camera_parameters`` and the bundled demo image pair used by
-BASELINE config 1). Host code; the port keeps its own copy.
+BASELINE config 1). Host code; the port keeps its own copy. The port adds
+``synthetic_image_pair``, the pair its demos default to.
 """
 
 from __future__ import annotations
@@ -48,3 +49,13 @@ def load_image_pair(max_width: int | None = None):
 
         a, b = shrink(a), shrink(b)
     return a, b
+
+
+def synthetic_image_pair(width: int = 640, shift: int = 16, seed: int = 0):
+    """A frame pair for the demos where no photographs exist: frame A is
+    uniform noise (``RandomState(seed)``) of ``width`` x 3/4 ``width``
+    pixels, frame B is A rolled ``shift`` pixels along x, so
+    B(x + shift) = A(x) (``bench.py``'s fallback pair at 640 wide)."""
+    h = width * 3 // 4
+    a = np.random.RandomState(seed).rand(h, width).astype(np.float32)
+    return a, np.roll(a, shift, axis=1)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sara_tpu_torch import resolve_device
+
 
 def fetch(*tensors):
     """Bring tensors to the host in ONE device-to-host transfer: flattened
@@ -47,3 +49,13 @@ def put(a, device) -> torch.Tensor:
     if device.type != "cuda" or t.is_cuda:
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def as_tensor(a, dtype=np.float32, device=None) -> torch.Tensor:
+    """``a`` as a tensor: a tensor stays on its device (or moves to
+    ``device`` when one is given); a host array, cast to ``dtype``, goes to
+    ``device`` through :func:`put` (None: the card, which raises without
+    one)."""
+    if isinstance(a, torch.Tensor):
+        return a if device is None else a.to(device)
+    return put(np.asarray(a, dtype), resolve_device(device))

@@ -1,8 +1,8 @@
 """Card-only tests of the port's CUDA kernels, of Slice B's estimators, of
 Slice C's bundle adjustment and odometry core, of Slice D's pose-graph
-optimizer, rotation averaging, checkpoints and global SfM, and of Slice E's
-chessboard device program and calibration LM on the card (marker
-``cuda``).
+optimizer, rotation averaging, checkpoints and global SfM, of Slice E's
+chessboard device program and calibration LM, and of the E3 modules and
+the demo twins on the card (marker ``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -779,3 +779,34 @@ def test_propagation_on_card_matches_cpu(cuda):
     for a, b in zip(*res):
         assert torch.equal(b.cpu(), a)
     assert res[0][3].sum() > 400
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.cuda
+def test_e3_on_card_matches_cpu(cuda):
+    """The E3 functions (Deriche, Otsu, adaptive threshold, CCL, watershed,
+    SLIC, gemm_conv2d, signed distance, the narrow band, border following)
+    on the card against the CPU on the same inputs, at 120x160: phase
+    "e3"'s gates."""
+    cs = _chip_smoke()
+    out = cs.phase_e3(ps, "card test", device=cuda, hw=(120, 160))
+    assert out["functions"]["narrow_band_flow"]["band_reads"] == 50
+
+
+@pytest.mark.cuda
+def test_demo_twins_on_card(cuda):
+    """The six demo twins on the card (no ``--cpu``) at 240 px wide, 6 VO
+    frames and 4 SfM views: phase "demos"'s gates."""
+    cs = _chip_smoke()
+    out = cs.phase_demos(ps, "card test", device=cuda, width=240,
+                         vo_frames=6, sfm_views=4)
+    assert set(out) >= set(cs.DEMOS)

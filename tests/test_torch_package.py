@@ -25,8 +25,9 @@ from sara_tpu_torch.sfm.loop_closure import LoopCloser
 from sara_tpu_torch.sfm.odometry import OdometryConfig, OdometryPipeline
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_SOURCES = sorted((ROOT / "sara_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_SOURCES = (sorted((ROOT / "sara_tpu_torch").rglob("*.py"))
+                + sorted((ROOT / "examples").glob("torch_*.py"))
+                + [ROOT / "chip_smoke.py"])
 
 
 def test_import_leaves_jax_out():
@@ -55,13 +56,25 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.features.multiscale, "
             "sara_tpu_torch.features.affine, sara_tpu_torch.features.dense, "
             "sara_tpu_torch.matching.ncc, "
-            "sara_tpu_torch.matching.key_proximity; "
+            "sara_tpu_torch.matching.key_proximity, "
+            "sara_tpu_torch.core.contours, sara_tpu_torch.image.deriche, "
+            "sara_tpu_torch.image.im2col, sara_tpu_torch.image.levelsets, "
+            "sara_tpu_torch.image.segmentation, sara_tpu_torch.image.slic; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_demo_twins_are_in_the_source_check():
+    """The six demo twins are among the sources checked for JAX."""
+    demos = [p.name for p in PORT_SOURCES if p.parent.name == "examples"]
+    assert sorted(demos) == sorted(
+        f"torch_{p.name}" for p in (ROOT / "examples").glob("*_demo.py")
+        if not p.name.startswith("torch_"))
+    assert len(demos) == 6
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES,
@@ -230,6 +243,17 @@ PORTED = sorted(p.relative_to(ROOT / "sara_tpu_torch").as_posix()
                 for p in (ROOT / "sara_tpu_torch").rglob("*.py")
                 if (ROOT / "sara_tpu" / p.relative_to(
                     ROOT / "sara_tpu_torch")).exists())
+
+
+def test_every_module_has_a_twin():
+    """Every module file of the JAX package has a file at the same path
+    under sara_tpu_torch/."""
+    twins = sorted(p.relative_to(ROOT / "sara_tpu").as_posix()
+                   for p in (ROOT / "sara_tpu").rglob("*.py"))
+    missing = [rel for rel in twins
+               if not (ROOT / "sara_tpu_torch" / rel).exists()]
+    assert not missing, f"no twin for {missing}"
+    assert PORTED == twins
 
 
 @pytest.mark.parametrize("rel", PORTED)
