@@ -58,8 +58,9 @@ raises, so the script exits nonzero and prints no result line):
    --room --frames 100 --loop`` runs it, 100 renders of the same room at
    240x320 on the whole loop through ``process_frame`` with a
    ``LoopCloser`` on the ``on_accept`` hook, then ``close``; gates: >= 99
-   accepted, a verified loop edge, ATE after <= 1.05 x before + 1e-6 and
-   <= 0.15, finite graph and map, K1's vector variant on every frame, the
+   accepted, a verified metric loop edge, ATE after <= 1.05 x before +
+   1e-6 and <= 1.25 x the largest of the reference's own nine runs on
+   these frames (``LOOP_ATE_GATE``), finite graph and map, K1's vector variant on every frame, the
    native union-find, and a checkpoint round trip (``save_sfm_state`` /
    ``load_sfm_state``) into a fresh pipeline on the card; records ms per
    frame, ATE, the loop edges, the Sim(3) scale drift, ``close``'s ms,
@@ -132,7 +133,16 @@ raises, so the script exits nonzero and prints no result line):
    corners, the rotation, the BA's RMS, the VO's ATE; the SfM's edges and
    the ATE of the float64 solution of its own BA problem, its float32 ATE
    logged: ROADMAP §3, F6);
-20. print the kernels line, the card line, then the result line.
+20. phase "tools" (the twins ``scripts/torch_*.py`` of the command-line
+   tools): ``eval_vo`` (synthetic keypoints; the room loop pipelined with
+   closure), ``bench_vo_frontend``, ``bench_ba``, ``bench_sfm_scale``,
+   ``bench_city_scale``, ``bench_config5_real``, ``eval_real_images`` and
+   ``mc_fivepoint`` through their ``main(argv)`` on the card, each at a
+   size cut from its default (``TOOL_RUNS``, printed beside each run) and
+   gated on what its tool reports (``tool_failures``); the sampler counts
+   are set to 0 just before each run and read just after (K1's vector
+   variant on the runs that detect SIFT on pixels, nothing on the others);
+21. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -1118,6 +1128,19 @@ def phase_ba(card: str, device="cuda", size=None, iters: int = 10) -> dict:
 
 LOOP_HW = (240, 320)        # scripts/eval_vo.py --room's default size
 LOOP_FRAMES = 100           # BASELINE config 3: the whole 100-frame loop
+# Phase "loop"'s ATE gate after closure, held to the reference package on
+# the same frames. tests/loop_witness.py ran the reference's own loop VO
+# (jax.jit of its float32 BA, eval_vo's configuration) on these 100 frames
+# with BAOptions.lambda_init x (1 + k 1e-6), k = -4..4, on an 8-core AMD
+# EPYC CPU (JAX 0.9.0), reference package as of commit 2ba37d0: ATE after
+# closure below (k = -4..4; before closure 0.2749-0.9977), every run with
+# 100 frames accepted and 3 metric loop edges. Its float32 BA drifts where
+# summation order says, so none of its nine runs meets the earlier gate of
+# 0.15; the gate is 1.25 x its largest (a tenth draw beats the largest of
+# nine one time in ten).
+LOOP_REFERENCE_ATE_AFTER = (0.5399, 0.3619, 0.3894, 0.5046, 0.3910, 0.3454,
+                            0.2531, 0.4707, 0.1798)
+LOOP_ATE_GATE = 1.25 * max(LOOP_REFERENCE_ATE_AFTER)
 
 
 def replay_closer(closer, gen_state):
@@ -1142,10 +1165,11 @@ def phase_loop(ps, card: str, device="cuda", n_frames: int = LOOP_FRAMES,
     inliers, 300 hypotheses) fed by the ``on_accept`` hook, then
     ``closer.close(pipe, accepted - 1)``. The sampler counts are set to 0
     just before the first frame and read just after ``close``. Gates: all
-    frames but one accepted, a loop closed with at least one verified edge,
-    ATE after <= 1.05 x ATE before + 1e-6 and <= 0.15, a finite pose graph
-    and map, the native union-find, and on the card K1's vector variant on
-    every frame and nothing else. Then the state goes through
+    frames but one accepted, a loop closed with at least one verified
+    metric edge, ATE after <= 1.05 x ATE before + 1e-6 and <=
+    ``LOOP_ATE_GATE`` (the reference's own loop on these frames), a finite
+    pose graph and map, the native union-find, and on the card K1's vector
+    variant on every frame and nothing else. Then the state goes through
     ``save_sfm_state`` / ``load_sfm_state`` into a fresh pipeline, which
     must hold the same trajectory, map and generator state. Records ms per
     frame (warm: frames 0 .. warm - 1; steady: the rest), ATE before and
@@ -1253,11 +1277,14 @@ def phase_loop(ps, card: str, device="cuda", n_frames: int = LOOP_FRAMES,
             lambda: optimize(prob, **kwargs), dev)
     log("loop", json.dumps(out), f"({card})")
     check(accepted >= n_frames - 1, f"loop: {accepted}/{n_frames} accepted")
-    check(bool(closed) and len(closer.loop_edges) >= 1,
-          "loop: no verified loop edge")
+    check(bool(closed) and any(e["kind"] == "metric"
+                               for e in out["loop_edges"]),
+          "loop: no verified metric loop edge")
     check(ate_after <= 1.05 * ate_before + 1e-6,
           f"loop: ATE {ate_before} -> {ate_after}")
-    check(ate_after <= 0.15, f"loop: ATE after closure {ate_after}")
+    check(ate_after <= LOOP_ATE_GATE,
+          f"loop: ATE after closure {ate_after} against the reference's "
+          f"{LOOP_ATE_GATE}")
     check(bool(np.isfinite(traj).all() and np.isfinite(points).all()),
           "loop: non-finite pose graph or map")
     if dev.type == "cuda":
@@ -1308,50 +1335,14 @@ SFM_SIZE = dict(n_views=128, n_points=900, capacity=512)  # bench_sfm_scale
 
 def make_ring_scene(n_views: int, n_points: int, capacity: int,
                     noise: float = 0.3, seed: int = 1, device="cuda"):
-    """scripts/bench_sfm_scale.py::_make_ring_scene in numpy: cameras on a
-    ring of radius 18 looking at a central cloud of ``n_points`` points
-    with planted descriptors, ``capacity`` keypoints per view (kept by
-    point id), ``noise`` px of pixel noise. Returns (port Keypoints on
+    """scripts/bench_sfm_scale.py's ring scene, as its twin
+    (``scripts/torch_bench_sfm_scale.py``) builds it: cameras on a ring of
+    radius 18 looking at a central cloud of ``n_points`` points with
+    planted descriptors, ``capacity`` keypoints per view (kept by point
+    id), ``noise`` px of pixel noise. Returns (port Keypoints on
     ``device``, camera centres, K)."""
-    from sara_tpu_torch.core.types import Keypoints
-
-    rs = np.random.RandomState(seed)
-    X = rs.uniform(-5, 5, (n_points, 3))
-    desc = rs.normal(size=(n_points, 128))
-    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
-    K = np.array([[800.0, 0, 512.0], [0, 800.0, 384.0], [0, 0, 1.0]])
-    dev = torch.device(device)
-    kps, centers = [], []
-    for f in range(n_views):
-        ang = 2 * np.pi * f / n_views
-        c = np.array([18.0 * np.cos(ang), 2.0 * np.sin(3 * ang),
-                      18.0 * np.sin(ang)])
-        z = -c / np.linalg.norm(c)
-        xax = np.cross(np.array([0.0, 1.0, 0.0]), z)
-        xax /= np.linalg.norm(xax)
-        R = np.stack([xax, np.cross(z, xax), z])     # world -> camera rows
-        t = -R @ c
-        centers.append(c)
-        Xc = X @ R.T + t
-        uv = Xc @ K.T
-        uv = uv[:, :2] / uv[:, 2:]
-        inside = ((Xc[:, 2] > 1.0) & (uv[:, 0] >= 0) & (uv[:, 0] < 1024)
-                  & (uv[:, 1] >= 0) & (uv[:, 1] < 768))
-        idx = np.nonzero(inside)[0][:capacity]
-        n = len(idx)
-        xy = np.zeros((capacity, 2), np.float32)
-        xy[:n] = uv[idx] + rs.normal(scale=noise, size=(n, 2))
-        d = np.zeros((capacity, 128), np.float32)
-        d[:n] = desc[idx]
-        mask = np.zeros(capacity, bool)
-        mask[:n] = True
-        f = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
-        kps.append(Keypoints(
-            xy=f(xy), scale=f(np.full(capacity, 2.0, np.float32)),
-            orientation=f(np.zeros(capacity, np.float32)),
-            response=f(mask.astype(np.float32)), descriptors=f(d),
-            mask=f(mask)))
-    return kps, np.asarray(centers), K
+    return load_tool("bench_sfm_scale").make_ring_scene(
+        n_views, n_points, capacity, noise, seed, device=device)
 
 
 def _city_path(n_views: int):
@@ -3134,6 +3125,206 @@ def phase_demos(ps, card: str, device="cuda", width: int = 640,
     return out
 
 
+
+# The runs of phase "tools": (run, twin in scripts/, argv, the cut against
+# the tool's defaults). Each twin runs through its main(argv) as a user
+# runs it.
+TOOL_RUNS = [
+    ("eval_vo", "eval_vo", ["--frames", "12"],
+     "12 synthetic keypoint frames (default 60)"),
+    ("eval_vo_room", "eval_vo",
+     ["--room", "--loop", "--pipelined", "--frames", "40"],
+     "the room loop at 240x320 over 40 frames (config 3: 100), "
+     "pipelined, with closure"),
+    ("bench_vo_frontend", "bench_vo_frontend", ["--frames", "8"],
+     "8 frames (default 12)"),
+    ("bench_ba", "bench_ba", ["--sizes", "small"],
+     "size small (default small,medium; phase ba runs large)"),
+    ("bench_sfm_scale", "bench_sfm_scale", ["--views", "32"],
+     "32 views (default 128, phase global_sfm's)"),
+    ("bench_city_scale", "bench_city_scale", ["--views", "64"],
+     "64 views (default 1024; phase city runs 1024 and 256)"),
+    ("bench_config5_real", "bench_config5_real", ["--views", "32"],
+     "32 views (default 128); mesh table n = 1 (one card)"),
+    ("eval_real_images", "eval_real_images", ["--frames", "10"],
+     "nothing cut (10 frames at 480x640)"),
+    ("mc_fivepoint", "mc_fivepoint", ["--n", "1000"],
+     "1,000 problems (default 10,000)"),
+]
+# The twins whose runs detect SIFT on rendered pixels (K1 on the card).
+TOOLS_WITH_K1 = ("eval_vo_room", "bench_vo_frontend", "bench_config5_real",
+                 "eval_real_images")
+
+
+def load_tool(name: str):
+    """The module of a command-line tool's twin, ``scripts/torch_<name>.py``,
+    by path."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tool_failures(run: str, out: dict, argv: list) -> list:
+    """The gates a tool twin's result must pass (what its tool reports,
+    held as the phases that run the same path hold it); returns the
+    messages of those it fails."""
+    bad = []
+
+    def need(ok, msg):
+        if not ok:
+            bad.append(f"{run}: {msg}")
+
+    def arg(flag, default):
+        return type(default)(argv[argv.index(flag) + 1]) if flag in argv \
+            else default
+
+    if run == "eval_vo":
+        n = arg("--frames", 60)
+        need(out["accepted"] >= n - 1, f"{out['accepted']}/{n} accepted")
+        need(out["ate_before"] <= 0.05, f"ATE {out['ate_before']}")
+    elif run == "eval_vo_room":
+        n = arg("--frames", 60)
+        need(out["accepted"] >= n - 1, f"{out['accepted']}/{n} accepted")
+        # The float32 VO on these loops ends where summation order says,
+        # in both packages (ROADMAP F6): at 180x240 over 40 frames the
+        # reference's tool ends at ATE 0.083-0.085 before closure, the twin
+        # at 0.088-0.26 (CPU runs, the procedural room); the 100-frame
+        # loop's witness spreads the reference over 0.27-1.00. Closure on
+        # a loop of 40 frames raises the ATE in both (ROADMAP F3: the
+        # reference 0.08 -> 0.27-0.28, the twin 0.09-0.26 -> 0.30-0.32).
+        need(out["ate_before_closure"] <= 0.30,
+             f"ATE {out['ate_before_closure']} before closure")
+        need(out["loop_closed"], "no loop closed")
+        need(math.isfinite(out["ate_after_closure"])
+             and out["ate_after_closure"] <= 0.5,
+             f"ATE {out['ate_after_closure']} after closure")
+    elif run == "bench_vo_frontend":
+        n = arg("--frames", 12)
+        for mode, r in out.items():
+            need(r["accepted"] >= n - 1 and r["ate"] <= 0.10,
+                 f"{mode}: {r['accepted']}/{n} accepted, ATE {r['ate']}")
+    elif run == "bench_ba":
+        for size, r in out.items():
+            if size == "mesh":
+                continue
+            for solver in ("dense", "cg"):
+                c = r[solver]
+                need(c["final_cost"] < c["initial_cost"],
+                     f"{size}[{solver}] cost {c['initial_cost']} -> "
+                     f"{c['final_cost']}")
+            d, g = r["dense"]["final_cost"], r["cg"]["final_cost"]
+            need(abs(d - g) <= 0.01 * g, f"{size}: dense {d} vs CG {g}")
+    elif run == "bench_sfm_scale":
+        n = arg("--views", 128)
+        need(out["num_edges"] >= n - 1, f"{out['num_edges']} edges")
+        need(out["ate"] <= 0.15, f"ATE {out['ate']}")
+        need(out["points"] > 500, f"{out['points']} points")
+        need(out["ba_info"]["final_cost"] < out["ba_info"]["initial_cost"],
+             f"BA cost {out['ba_info']}")
+    elif run == "bench_city_scale":
+        n = arg("--views", 1024)
+        need(out["edges"] >= n - 1, f"{out['edges']} edges")
+        need(out["ate"] < 2.0, f"ATE {out['ate']}")
+        need(out["points"] > 500, f"{out['points']} points")
+        need(out["ba_info"]["final_cost"] < out["ba_info"]["initial_cost"],
+             f"BA cost {out['ba_info']}")
+    elif run == "bench_config5_real":
+        n = arg("--views", 128)
+        need(out["edges"] >= n, f"{out['edges']} of {out['pairs']} edges")
+        # The reference itself ends at ATE 0.3663 on 12 views of this loop
+        # and 0.2087 on 24 (its tool on the CPU, the procedural room).
+        need(out["ate"] <= 0.5, f"ATE {out['ate']}")
+        need(out["points"] > 500, f"{out['points']} points")
+        rows = out["partitioned_ba_scaling"]
+        need(len(rows) >= 1 and all(r["final_cost"] < r["initial_cost"]
+                                    for r in rows),
+             f"partitioned BA {rows}")
+    elif run == "eval_real_images":
+        # Its global SfM on these views ends where the RANSAC draw and the
+        # float32 BA say, in both packages: over five generator seeds the
+        # reference's tool (the procedural room, CPU) ends at ATE
+        # 0.0061-0.8766, and 0.0014-0.8895 once its own BA problem is
+        # solved in float64; the twin at 0.0339-0.7804 and 0.0009-0.0834.
+        # So the SfM's ATEs are logged (the float64 solve too) and its
+        # structure gated; the VO on the same frames is gated on its ATE.
+        n = arg("--frames", 10)
+        vo, gs = out["vo"], out["global_sfm"]
+        need(vo["accepted"] >= n - 1 and vo["ate"] <= 0.10,
+             f"VO {vo['accepted']}/{n} accepted, ATE {vo['ate']}")
+        ate64, cost64 = sfm_float64_solution(out)
+        out.update(ate_float64=ate64, ba_cost_float64=cost64)
+        need(gs["edges"] >= n - 1 and gs["points"] > 500
+             and math.isfinite(gs["ate"]) and math.isfinite(ate64),
+             f"global SfM {gs['edges']} edges, {gs['points']} points, ATE "
+             f"{gs['ate']} (float64 BA of the same problem {ate64})")
+    elif run == "mc_fivepoint":
+        # tests/test_torch_geometry.py's gate: >= 99% of the oracle's
+        # solutions on generic problems, >= 97% near-planar.
+        r = out["recovery_by_kind"]
+        need(r["generic"] >= 0.99 and r["near_planar"] >= 0.97,
+             f"recovery {r}")
+    return bad
+
+
+def phase_tools(ps, card: str, device="cuda", runs=None) -> dict:
+    """The twins of the command-line tools (``scripts/torch_*.py``) through
+    their ``main(argv)`` on ``device``, at the sizes of ``TOOL_RUNS`` (each
+    cut printed beside the tool's default), each gated by
+    ``tool_failures``. The sampler counts are set to 0 just before each run
+    and read just after: the runs that detect SIFT on rendered pixels launch
+    K1's vector variant and nothing else on the card, the others nothing.
+    ``eval_vo_video`` is left out: the card's machine has no OpenCV.
+    Returns each run's seconds, result and launches."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    dev = torch.device(device)
+    out, bad = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, tool, argv, cut in runs or TOOL_RUNS:
+            argv = list(argv) + ["--device", str(device)]
+            if tool in ("eval_vo", "eval_real_images"):
+                argv += ["--out", os.path.join(tmp, f"{run}.json")]
+            elif tool in ("bench_city_scale", "bench_config5_real"):
+                argv += ["--json", os.path.join(tmp, f"{run}.json")]
+            ps.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                res = load_tool(tool).main(argv)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = ps.counts()
+            bad += tool_failures(run, res, argv)
+            if dev.type == "cuda":
+                k1 = counts.pop("K1")
+                if run in TOOLS_WITH_K1:
+                    bad += [] if k1 > 0 and not any(counts.values()) else [
+                        f"{run}: launched K1 {k1} times and {counts}"]
+                elif k1 or any(counts.values()):
+                    bad.append(f"{run}: launched K1 {k1} times, {counts}")
+                counts["K1"] = k1
+            res = {k: v for k, v in res.items()
+                   if k not in ("ba_problem", "centers")}
+            out[run] = {"s": secs, "argv": argv, "cut": cut,
+                        "sampler_counts": counts, "result": res}
+            log(f"tools: {run} ({cut}): {secs:.2f} s, sampler "
+                f"{json.dumps(counts)}", json.dumps(res, default=str))
+    out["sampler_counts"] = {"K1": sum(r["sampler_counts"].get("K1", 0)
+                                       for r in out.values())}
+    log("tools", json.dumps({k: round(v["s"], 2) for k, v in out.items()
+                             if k != "sampler_counts"}),
+        f"K1 launches {out['sampler_counts']['K1']} ({card})")
+    check(not bad, "; ".join(bad))
+    return out
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -3178,6 +3369,7 @@ def main() -> int:
     pr = timed("propagation", phase_propagation, ps, card, frames)
     e3 = timed("e3", phase_e3, ps, card)
     demos = timed("demos", phase_demos, ps, card)
+    tools = timed("tools", phase_tools, ps, card)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -3212,7 +3404,8 @@ def main() -> int:
     kernels = [
         entry("patch_sampler", "K1", "sara_tpu/ops/patch_sampler.py:170",
               rows, launches + k1_on_k2_path + vo["sampler_counts"]["K1"]
-              + loop["sampler_counts"]["K1"] + lp_launches,
+              + loop["sampler_counts"]["K1"] + lp_launches
+              + tools["sampler_counts"]["K1"],
               lp_err, "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
                                 "pack_x": k1_on_k2_path,
@@ -3222,7 +3415,8 @@ def main() -> int:
                                 "detect_track": dt["sampler_counts"]["K1"],
                                 "propagation": pr["sampler_counts"]["K1"],
                                 "e3": e3["sampler_counts"]["K1"],
-                                "demos": demos["sampler_counts"]["K1"]}),
+                                "demos": demos["sampler_counts"]["K1"],
+                                "tools": tools["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

@@ -78,5 +78,11 @@ def default_device() -> torch.device:
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """``device``, or :func:`default_device` when it is None."""
-    return default_device() if device is None else torch.device(device)
+    """``device``, or :func:`default_device` when it is None. A CUDA
+    device raises without a card, as None does."""
+    if device is None:
+        return default_device()
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        default_device()
+    return dev

@@ -19,11 +19,15 @@ same layout, packing and precision choices:
   system replaces the CG loop.
 
 Precision. For float32 problems the reference works in bfloat16 with
-float32 accumulation, and so does this port, cast for cast: the per-slot
-residuals and Jacobians and the one-hot E are bfloat16; ``Ucat``, the S
-contraction and ``rhs_pt`` multiply bfloat16 operands and accumulate in
-float32; D is accumulated in float32 and then ROUNDED to bfloat16; H is
-bfloat16; V and bp are summed in float32. PyTorch has no
+float32 accumulation, and so does this port, cast for cast, as the
+reference computes under ``jax.jit`` (which ``bundle_adjust`` runs): the
+per-slot residuals and Jacobians and the one-hot E are bfloat16; ``Ucat``,
+the S contraction and ``rhs_pt`` multiply bfloat16 operands and accumulate
+in float32; D is accumulated in float32 and then ROUNDED to bfloat16; H =
+V^-1 D multiplies the bfloat16 V^-1 and D and sums over l in float32, then
+rounds to bfloat16 ONCE (XLA fuses the product and the sum; run op by op,
+the reference would round each product); V and bp are summed in float32.
+PyTorch has no
 ``preferred_element_type``, and a matmul of two bfloat16 tensors returns
 bfloat16, which is not the reference's semantics. A product of two
 bfloat16 numbers is exact in float32, so each such product here rounds its
@@ -343,9 +347,10 @@ def _chunk_stats(poses, intr, pose_free, lam, chunk_in, delta, cutoff):
     # D accumulates in dt and is then rounded to the working dtype.
     D = torch.bmm(_acc(W18, dt).transpose(1, 2), _acc(E, dt)).to(wd)
     D = D.reshape(Q, 3, 6, C) * pose_free.T[None, None, :, :].to(wd)
-    # H[q,k] = sum_l Vinv[q,k,l] D[q,l], in the working dtype.
-    H = torch.sum(Vinv.to(wd)[:, :, :, None, None] * D[:, None, :, :, :],
-                  dim=2)
+    # H[q,k] = sum_l Vinv[q,k,l] D[q,l]: the working-dtype operands
+    # multiplied and summed in dt, rounded to the working dtype once.
+    H = torch.sum(_acc(Vinv.to(wd), dt)[:, :, :, None, None]
+                  * _acc(D, dt)[:, None, :, :, :], dim=2).to(wd)
     D2 = D.reshape(3 * Q, 6 * C)
     H2 = H.reshape(3 * Q, 6 * C)
     # The S contraction: working-dtype operands, dt accumulation. S_pt is

@@ -27,7 +27,17 @@ from sara_tpu_torch.sfm.odometry import OdometryConfig, OdometryPipeline
 ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = (sorted((ROOT / "sara_tpu_torch").rglob("*.py"))
                 + sorted((ROOT / "examples").glob("torch_*.py"))
+                + sorted((ROOT / "scripts").glob("torch_*.py"))
                 + [ROOT / "chip_smoke.py"])
+# The command-line tools of scripts/ that have no torch_ twin, and why.
+TOOLS_WITHOUT_TWIN = {
+    "calibrate_camera.py": "its twin is the module sara_tpu_torch/calib/"
+                           "cli.py (python -m sara_tpu_torch.calib.cli)",
+    "eval_detection_quality.py": "its yardstick is OpenCV's SIFT on a "
+                                 "photograph of the reference's data; the "
+                                 "card's machine has neither",
+}
+PROBE_REASON = "a probe of the JAX program on a TPU"
 
 
 def test_import_leaves_jax_out():
@@ -254,6 +264,26 @@ def test_every_module_has_a_twin():
                if not (ROOT / "sara_tpu_torch" / rel).exists()]
     assert not missing, f"no twin for {missing}"
     assert PORTED == twins
+
+
+def test_every_tool_has_a_twin():
+    """Every command-line tool of scripts/ has a twin scripts/torch_<name>,
+    or a reason in TOOLS_WITHOUT_TWIN (the TPU probes probe_*.py: a probe
+    of the JAX program on a TPU); every twin has its tool."""
+    tools = sorted(p.name for p in (ROOT / "scripts").glob("*.py")
+                   if not p.name.startswith("torch_"))
+    missing = [t for t in tools
+               if not (ROOT / "scripts" / f"torch_{t}").exists()
+               and t not in TOOLS_WITHOUT_TWIN
+               and not t.startswith("probe_")]
+    assert not missing, f"no twin for {missing}"
+    orphans = [p.name for p in (ROOT / "scripts").glob("torch_*.py")
+               if p.name[len("torch_"):] not in tools]
+    assert not orphans, f"twins without a tool: {orphans}"
+    assert all(not (ROOT / "scripts" / f"torch_{t}").exists()
+               for t in TOOLS_WITHOUT_TWIN)
+    assert (ROOT / "sara_tpu_torch" / "calib" / "cli.py").exists()
+    assert sum(t.startswith("probe_") for t in tools) == 23, PROBE_REASON
 
 
 @pytest.mark.parametrize("rel", PORTED)
