@@ -77,7 +77,7 @@ raises, so the script exits nonzero and prints no result line):
    output of the counted run held against the plain version;
 13. phase "city" (Slice D2, BASELINE config 5's BA): the 1024-view city
    scene's true tracks (C=1024, 5,885 points, 393,167 observations,
-   float32) through ``partitioned_bundle_adjust`` (16 blocks, 3 sweeps, 12
+   float32) through ``partitioned_bundle_adjust`` (16 blocks, 2 sweeps, 12
    LM iterations) and the global CG ``bundle_adjust`` (36 iterations):
    both lower the cost, the partitioned cost <= the initial, finite;
    records the cost ratio, Cb, Pb, Sp, seconds per phase, syncs, peak
@@ -139,7 +139,11 @@ raises, so the script exits nonzero and prints no result line):
    ``bench_city_scale``, ``bench_config5_real``, ``eval_real_images`` and
    ``mc_fivepoint`` through their ``main(argv)`` on the card, each at a
    size cut from its default (``TOOL_RUNS``, printed beside each run) and
-   gated on what its tool reports (``tool_failures``); the sampler counts
+   gated on what its tool reports (``tool_failures``), and
+   ``eval_detection_quality``'s ``run_ours`` at the tool's defaults on a
+   texture and its warp made on the card, without its OpenCV baseline
+   (``detection_quality``; gates: >= 95% of matches correct, repeatability
+   >= ``QUALITY_REPEATABILITY_FLOOR``, 8 K1 launches); the sampler counts
    are set to 0 just before each run and read just after (K1's vector
    variant on the runs that detect SIFT on pixels, nothing on the others);
 21. print the kernels line, the card line, then the result line.
@@ -1718,7 +1722,10 @@ def phase_low_precision(ps, card: str) -> tuple:
 
 
 CITY_SIZE = dict(n_views=1024, capacity=384)   # scripts/bench_city_scale.py
-CITY_BA = dict(blocks=16, sweeps=3, iters=12, global_iters=36)
+# Cut: 2 sweeps where bench_city_scale.py runs 3 (--ba-sweeps), here and
+# in phase "dist", which repeats the solve on a mesh; with 3 the whole
+# script took 791 s of its 1200 s limit on the H100.
+CITY_BA = dict(blocks=16, sweeps=2, iters=12, global_iters=36)
 CITY_SFM_VIEWS = 256
 
 
@@ -1741,9 +1748,10 @@ def phase_city(card: str, device="cuda", size=None, ba=None,
     city scene (1024 views, capacity 384) in numpy, its true tracks as a BA
     problem (poses and points perturbed from seed 0, the scene's 0.3 px
     noise kept), float32, through ``partitioned_bundle_adjust`` (16 blocks,
-    3 sweeps, 12 LM iterations) and the global ``bundle_adjust`` (C > 512:
-    the CG path) at 36 LM iterations. Gates: both lower the cost, the
-    partitioned cost is at most the initial one, every output finite.
+    2 sweeps: a cut, ``CITY_BA``; 12 LM iterations) and the global
+    ``bundle_adjust`` (C > 512: the CG path) at 36 LM iterations. Gates:
+    both lower the cost, the partitioned cost is at most the initial one,
+    every output finite.
     Records the ratio of the partitioned cost to the global one (the
     reference's target: 1.3), Cb, Pb, Sp, the point chunk, seconds per
     phase and per sweep, syncs of one phase, peak memory. Then
@@ -1781,6 +1789,8 @@ def phase_city(card: str, device="cuda", size=None, ba=None,
         for b in range(ba["blocks"])]
     out["block_points"] = [int(v.sum()) for v in plan.pt_valid]
     opts = BAOptions(max_iters=ba["iters"])
+    log(f"city: {ba['sweeps']} partitioned sweeps (cut; "
+        "bench_city_scale.py: 3)")
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     sync()
@@ -1932,6 +1942,8 @@ def phase_dist(card: str, city_prob, city_part, frames, device="cuda",
     out["allreduce_mb_per_iter"] = sum(x.numel() for x in payload) * 4 / 1e6
 
     # The partitioned solve with its blocks on the mesh.
+    log(f"dist: the meshed partitioned solve at phase city's depth, "
+        f"{CITY_BA['sweeps']} sweeps (cut; bench_city_scale.py: 3)")
     blk = make_mesh(device=dev, axis="block")
     t0 = time.perf_counter()
     meshed, _ = part.partitioned_bundle_adjust(
@@ -3150,10 +3162,49 @@ TOOL_RUNS = [
      "nothing cut (10 frames at 480x640)"),
     ("mc_fivepoint", "mc_fivepoint", ["--n", "1000"],
      "1,000 problems (default 10,000)"),
+    ("eval_detection_quality", "eval_detection_quality", [],
+     "nothing cut (480x640, the tool's defaults); no OpenCV on the card's "
+     "machine, so no OpenCV baseline, and the warp is warp_homography's "
+     "on the card"),
 ]
 # The twins whose runs detect SIFT on rendered pixels (K1 on the card).
 TOOLS_WITH_K1 = ("eval_vo_room", "bench_vo_frontend", "bench_config5_real",
-                 "eval_real_images")
+                 "eval_real_images", "eval_detection_quality")
+# K1's launches in the quality run: 4 per 480x640 frame at first_octave
+# -1. The tool keeps nearest-sampled descriptors (``desc_sample_nearest``),
+# so the two smallest of the 6 octaves, where the reference's TPU window
+# does not fit, take nearest gathers as the reference does
+# (``patch_sampler.tpu_window_fits``); the frame pair samples bilinear, 6
+# per frame.
+QUALITY_K1_LAUNCHES = 8
+# The floor of the quality run's repeatability. The same call on the CPU
+# (``detection_quality("cpu")``: the kernel sampler's plain version, two
+# torch threads, an 8-core Intel Xeon) gave 0.8513339991439578 (7337 / 6676
+# keypoints, 5151 of 5152 matches correct); the floor leaves 0.02 below it
+# for the ulps of the card's pyramid.
+QUALITY_REPEATABILITY_FLOOR = 0.83
+
+
+def detection_quality(device="cuda", hw=FRAME_HW, seed=1) -> dict:
+    """The quality tool's twin as ``main`` runs it, without OpenCV (absent
+    on the card's machine): ``run_ours`` at the tool's defaults
+    (``first_octave`` -1, capacities 8192 / 4096) on a seeded texture and
+    its warp by ``make_warp``'s homography, made on ``device`` by
+    ``warp_homography``, scored by the twin's ``repeatability`` and
+    ``match_quality``. The warp fills with zeros where the tool's
+    ``cv2.warpPerspective`` reflects the image (``BORDER_REFLECT``), so
+    these numbers are not the CPU test's."""
+    from sara_tpu_torch.image.transform import warp_homography
+
+    q = load_tool("eval_detection_quality")
+    h, w = hw
+    H = q.make_warp(h, w)
+    img = torch.from_numpy(texture(seed, h, w)).to(device)
+    warped = warp_homography(img, np.linalg.inv(H), h, w, fill_value=0.0)
+    res = q.score(q.run_ours(img, warped, -1, 8192, 4096, device=device),
+                  H, h, w)
+    return dict(res, border_fill="zeros (the tool: cv2's reflection)",
+                opencv="skipped: the card's machine has no cv2")
 
 
 def load_tool(name: str):
@@ -3262,6 +3313,13 @@ def tool_failures(run: str, out: dict, argv: list) -> list:
              and math.isfinite(gs["ate"]) and math.isfinite(ate64),
              f"global SfM {gs['edges']} edges, {gs['points']} points, ATE "
              f"{gs['ate']} (float64 BA of the same problem {ate64})")
+    elif run == "eval_detection_quality":
+        need(out["matches"] > 0
+             and out["correct"] >= 0.95 * out["matches"],
+             f"{out['correct']} of {out['matches']} matches correct")
+        need(out["repeatability"] >= QUALITY_REPEATABILITY_FLOOR,
+             f"repeatability {out['repeatability']} (floor "
+             f"{QUALITY_REPEATABILITY_FLOOR})")
     elif run == "mc_fivepoint":
         # tests/test_torch_geometry.py's gate: >= 99% of the oracle's
         # solutions on generic problems, >= 97% near-planar.
@@ -3278,7 +3336,9 @@ def phase_tools(ps, card: str, device="cuda", runs=None) -> dict:
     ``tool_failures``. The sampler counts are set to 0 just before each run
     and read just after: the runs that detect SIFT on rendered pixels launch
     K1's vector variant and nothing else on the card, the others nothing.
-    ``eval_vo_video`` is left out: the card's machine has no OpenCV.
+    ``eval_vo_video`` is left out and ``eval_detection_quality`` runs
+    without its OpenCV baseline (``detection_quality``): the card's machine
+    has no OpenCV.
     Returns each run's seconds, result and launches."""
     import contextlib
     import io
@@ -3297,7 +3357,9 @@ def phase_tools(ps, card: str, device="cuda", runs=None) -> dict:
             ps.reset_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(io.StringIO()):
-                res = load_tool(tool).main(argv)
+                res = (detection_quality(dev)
+                       if tool == "eval_detection_quality"
+                       else load_tool(tool).main(argv))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
@@ -3305,8 +3367,10 @@ def phase_tools(ps, card: str, device="cuda", runs=None) -> dict:
             bad += tool_failures(run, res, argv)
             if dev.type == "cuda":
                 k1 = counts.pop("K1")
+                want = (k1 == QUALITY_K1_LAUNCHES
+                        if run == "eval_detection_quality" else k1 > 0)
                 if run in TOOLS_WITH_K1:
-                    bad += [] if k1 > 0 and not any(counts.values()) else [
+                    bad += [] if want and not any(counts.values()) else [
                         f"{run}: launched K1 {k1} times and {counts}"]
                 elif k1 or any(counts.values()):
                     bad.append(f"{run}: launched K1 {k1} times, {counts}")

@@ -10,7 +10,8 @@ tensor lies; a host array goes to the card (``resolve_device(None)``).
   seeds restricted to the weak mask (a max-pool of the 0/1 map, exact).
 - The Hough accumulator is a scatter-add with ``accumulate=True``: many
   edgels land in one (theta, rho) bin and every vote counts. The votes
-  are 0/1, so the sums are exact in any order.
+  are 0/1, so the sums are exact in any order. Its thetas, bins and
+  top K round and order as the jitted twin's do (``hough_lines``).
 """
 
 from __future__ import annotations
@@ -76,22 +77,38 @@ def hough_lines(edge_map, num_thetas: int = 180, num_rhos: int = 400,
                 max_lines: int = 32):
     """Top-K lines (rho, theta) from an edge map by dense Hough voting.
 
-    Returns (rho (K,), theta (K,), votes (K,)). Equal vote counts may come
-    out in another order than the twin's (``torch.topk`` does not order
-    ties by index)."""
+    Returns (rho (K,), theta (K,), votes (K,)), the twin's lines in the
+    twin's order: each value rounds as ``jax.jit`` of the twin computes it
+    on the CPU, so the card and the CPU return the same lines.
+    - The thetas are ``iota * float32(pi / num_thetas)``, the constant XLA
+      folds ``jnp.linspace(0, pi, num_thetas, endpoint=False)`` into; their
+      cosines and sines are taken in float64 and rounded once.
+    - ``x cos + y sin`` is one fused multiply-add, ``fma(x, cos, y sin)``,
+      as XLA's CPU code contracts it (emulated in float64, where the
+      product is exact); the bin is ``(rho + diag)`` times the folded
+      constant ``float32(float32(1 / (2 diag)) * num_rhos)``.
+    - The votes are integers, so the accumulator is exact in any order.
+    - The top K is a stable descending sort: equal votes come lowest index
+      first, as ``lax.top_k`` returns them (``torch.topk`` orders ties
+      arbitrarily, and Hough votes tie often).
+    """
     edge_map = _as_image(edge_map)
     dev = edge_map.device
     H, W = edge_map.shape
-    diag = math.sqrt(float(H * H + W * W))
-    thetas = put(np.linspace(0.0, np.pi, num_thetas, endpoint=False,
-                             dtype=np.float32), dev)
+    f32 = np.float32
+    diag = f32(np.sqrt(f32(H * H + W * W)))
+    thetas = np.arange(num_thetas, dtype=f32) * f32(f32(np.pi)
+                                                    * f32(1.0 / num_thetas))
+    ct, st = (put(fn(thetas.astype(np.float64)).astype(f32), dev)
+              for fn in (np.cos, np.sin))
     pts = edge_map.reshape(-1).to(torch.float32)
     y, x = (g.reshape(-1).to(torch.float32) for g in torch.meshgrid(
         torch.arange(H, device=dev), torch.arange(W, device=dev),
         indexing="ij"))
-    rho = (x[:, None] * torch.cos(thetas)[None, :]
-           + y[:, None] * torch.sin(thetas)[None, :])            # (N, T)
-    rbin = torch.clamp((rho + diag) / (2 * diag) * num_rhos, 0,
+    rho = (x.double()[:, None] * ct.double()[None, :]
+           + (y[:, None] * st[None, :]).double()).to(torch.float32)  # (N, T)
+    scale = float(f32(f32(f32(1.0) / (f32(2.0) * diag)) * f32(num_rhos)))
+    rbin = torch.clamp((rho + float(diag)) * scale, 0,
                        num_rhos - 1).to(torch.int64)
     tbin = torch.arange(num_thetas, device=dev)[None, :].expand_as(rbin)
     acc = torch.zeros((num_thetas, num_rhos), dtype=torch.float32,
@@ -105,11 +122,14 @@ def hough_lines(edge_map, num_thetas: int = 180, num_rhos: int = 400,
                          for dy in (-1, 0, 1) for dx in (-1, 0, 1)
                          if not (dy == 0 and dx == 0)]).amax(0)
     score = torch.where(acc >= neigh, acc, torch.zeros_like(acc)).reshape(-1)
-    votes, idx = torch.topk(score, max_lines)
+    idx = torch.sort(score, descending=True, stable=True).indices[:max_lines]
     t_idx = idx // num_rhos
     r_idx = idx % num_rhos
-    rho_out = (r_idx.to(torch.float32) + 0.5) / num_rhos * 2 * diag - diag
-    return rho_out, thetas[t_idx], votes
+    # (r + 0.5) / num_rhos * 2 diag - diag, folded and fused as XLA does.
+    step = float(f32(f32(f32(1.0) / f32(num_rhos)) * f32(2.0)) * diag)
+    rho_out = ((r_idx.to(torch.float32) + 0.5).double() * step
+               - float(diag)).to(torch.float32)
+    return rho_out, put(thetas, dev)[t_idx], score[idx]
 
 
 def line_segment_endpoints(edge_map, rho, theta, votes, max_lines: int = 32,

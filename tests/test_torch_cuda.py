@@ -1,8 +1,8 @@
 """Card-only tests of the port's CUDA kernels, of Slice B's estimators, of
 Slice C's bundle adjustment and odometry core, of Slice D's pose-graph
 optimizer, rotation averaging, checkpoints and global SfM, of Slice E's
-chessboard device program and calibration LM, and of the E3 modules and
-the demo twins on the card (marker ``cuda``).
+chessboard device program, calibration LM and Hough lines, and of the E3
+modules and the demo twins on the card (marker ``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -682,6 +682,29 @@ def test_calibrate_pinhole_on_card_matches_cpu(cuda):
     assert abs(r_gpu["rms"] - r_cpu["rms"]) < 1e-6
     np.testing.assert_allclose(r_32["K"], r_gpu["K"], rtol=1e-3)
     assert abs(r_gpu["K"][0, 0] - 1000.0) < 5
+
+
+@pytest.mark.cuda
+def test_hough_lines_on_card_equal_cpu(cuda):
+    """``hough_lines`` on the card returns the CPU's lines bit for bit
+    (rho, theta, votes, in order) on the Canny edges of a 240x320 view of
+    phase "calib"'s board and on dense random edges: the votes are
+    integers below 2^24, so the card's atomics are exact, and every
+    rounding and the tie order are pinned (``image/edges.py``)."""
+    from sara_tpu_torch.image import edges
+
+    cs = _chip_smoke()
+    K = np.array([[250.0, 0, 160.0], [0, 250.0, 120.0], [0, 0, 1.0]])
+    R, t = cs.board_pose(np.radians(20.0), np.radians(-15.0), 6, 9, 14.0)
+    img = cs.render_chessboard(K, R, t, 6, 9, hw=(240, 320))[0]
+    board = edges.canny(torch.from_numpy(img))
+    dense = torch.from_numpy(np.random.RandomState(0).rand(240, 320) < 0.3)
+    for e, k in ((board, 64), (dense, 4096)):
+        cpu = edges.hough_lines(e, max_lines=k)
+        card = edges.hough_lines(e.to(cuda), max_lines=k)
+        for a, b in zip(cpu, card):
+            assert b.device.type == "cuda" and torch.equal(b.cpu(), a)
+    assert float(cpu[2][0]) > 0
 
 
 @pytest.mark.cuda

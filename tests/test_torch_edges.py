@@ -9,8 +9,11 @@ board, so an ulp decides which of two tied pixels survives. Hence:
   the reference's blur is fed to the port (all but a handful of tie
   pixels); end to end on the board every edge pixel of one package lies
   within one pixel of the other's.
-- Hough votes are compared as vote sets (``torch.topk`` orders ties
-  differently), with a case where every edgel of a line lands in one bin.
+- Hough lines (rho, theta, votes, in order) equal the reference's bit for
+  bit, run as users run it: in a subprocess without the suite's x64, under
+  which the reference's thetas, and so its votes, are float64. Fifteen
+  cases (step, board, noisy board; K = 8 to 128), and a case where every
+  edgel of a line lands in one bin.
 - Chains are compared as point sets, segments within 0.5 px.
 The twins of the reference's own edge tests follow; the real-image test
 (``test_line_segments_on_real_image``, whose image is absent) gets a
@@ -33,6 +36,7 @@ from sara_tpu_torch.image import edges as ted
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_calibration import K_GT, _render_chessboard, _view_pose  # noqa
+from tool_twins import run_jax  # noqa: E402
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -132,23 +136,83 @@ def test_canny_flat_image_empty():
     assert not ted.canny(torch.full((64, 64), 0.5)).any()
 
 
-def _vote_set(votes):
-    return sorted(np.asarray(votes).tolist())
+# The images of the Hough cases and the numbers of lines asked for.
+HOUGH_IMAGES = {"step": lambda: _step(64, 20), "board": _board,
+                "noisy_board": lambda: _board(0.05)}
+HOUGH_KS = (8, 16, 32, 64, 128)
+# A dense random edge map and its K: 30% of 240x320 pixels vote, so
+# rhos fall within an ulp of a bin's edge, and one ulp of a cosine or of
+# x cos + y sin moves a vote (the named images move none).
+DENSE_EDGES_K = 4096
+
+
+def _dense_edges():
+    return np.random.RandomState(0).rand(240, 320) < 0.3
+
+
+def reference_hough(path):
+    """The reference's Canny edges of each of ``HOUGH_IMAGES`` and its
+    Hough lines at each of ``HOUGH_KS``, and its lines on the dense random
+    edges, into an NPZ at ``path``. Run by ``run_jax``, without x64."""
+    arrays = {"dense": _dense_edges()}
+    for name, make in HOUGH_IMAGES.items():
+        arrays[name] = np.asarray(jed.canny(jnp.asarray(make())))
+    for name, ks in [(n, HOUGH_KS) for n in HOUGH_IMAGES] + [
+            ("dense", (DENSE_EDGES_K,))]:
+        for k in ks:
+            arrays[f"{name}_{k}"] = np.stack([np.asarray(a) for a in (
+                jed.hough_lines(jnp.asarray(arrays[name]), max_lines=k))])
+    np.savez(path, **arrays)
+
+
+@pytest.fixture(scope="module")
+def hough_reference(tmp_path_factory):
+    path = tmp_path_factory.mktemp("hough") / "reference.npz"
+    run_jax("import test_torch_edges as t; import jax.numpy as jnp; "
+            "assert jnp.asarray(1.0).dtype == jnp.float32; "
+            f"t.reference_hough({str(path)!r})")
+    return dict(np.load(path))
+
+
+def _port_lines(ref, name, k):
+    lines = ted.hough_lines(torch.from_numpy(ref[name]), max_lines=k)
+    assert all(a.dtype == torch.float32 for a in lines)
+    return np.stack([a.numpy() for a in lines])
+
+
+@pytest.mark.parametrize("k", HOUGH_KS)
+@pytest.mark.parametrize("name", list(HOUGH_IMAGES))
+def test_hough_lines_equal_reference(hough_reference, name, k):
+    """All K lines, in order, bit for bit: the same edges through the
+    reference (no x64) and the port. Votes tie often (31 lines share the
+    last vote on the step at K = 64), so this holds the tie order, the
+    thetas, the bins and the rhos as XLA rounds them."""
+    got = _port_lines(hough_reference, name, k)
+    want = hough_reference[f"{name}_{k}"]
+    for row, what in enumerate(("rho", "theta", "votes")):
+        np.testing.assert_array_equal(got[row], want[row], err_msg=what)
+
+
+def test_hough_lines_equal_reference_on_dense_edges(hough_reference):
+    """The 4096 best lines of the dense random edges, in order, bit for
+    bit: here the cosines' rounding (taken in float64 and rounded once)
+    and the fused multiply-add of x cos + y sin decide votes too."""
+    got = _port_lines(hough_reference, "dense", DENSE_EDGES_K)
+    want = hough_reference[f"dense_{DENSE_EDGES_K}"]
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("img", ["step", "board"])
-def test_hough_vote_sets(img):
-    e = _step(64, 20) if img == "step" else _board()
-    ej = np.asarray(jed.canny(jnp.asarray(e)))
-    rj, tj, vj = jed.hough_lines(jnp.asarray(ej), max_lines=16)
-    rt, tt, vt = ted.hough_lines(torch.from_numpy(ej), max_lines=16)
-    assert _vote_set(vt) == _vote_set(vj)
-    # The same (rho, theta) cells carry the votes above the last tie.
-    last = float(np.min(np.asarray(vj)))
-    cell = lambda r, t, v: {(round(float(a), 3), round(float(b), 5))  # noqa
-                            for a, b, c in zip(r, t, v) if c > last}
-    assert cell(rt, tt, vt) == cell(np.asarray(rj), np.asarray(tj),
-                                    np.asarray(vj))
+def test_hough_vote_sets(img, hough_reference):
+    """The votes of the 16 best lines, sorted, and the (rho, theta) cells
+    that carry them, ties included, equal the reference's, run as users
+    run it (no x64): under the suite's x64 its thetas are float64 and the
+    board's votes are others."""
+    got = _port_lines(hough_reference, img, 16)
+    want = hough_reference[f"{img}_16"]
+    assert sorted(got[2].tolist()) == sorted(want[2].tolist())
+    cells = lambda a: set(zip(*a.tolist()))  # noqa: E731
+    assert cells(got) == cells(want)
 
 
 def test_hough_accumulates_repeated_bins():

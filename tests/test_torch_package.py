@@ -33,9 +33,6 @@ PORT_SOURCES = (sorted((ROOT / "sara_tpu_torch").rglob("*.py"))
 TOOLS_WITHOUT_TWIN = {
     "calibrate_camera.py": "its twin is the module sara_tpu_torch/calib/"
                            "cli.py (python -m sara_tpu_torch.calib.cli)",
-    "eval_detection_quality.py": "its yardstick is OpenCV's SIFT on a "
-                                 "photograph of the reference's data; the "
-                                 "card's machine has neither",
 }
 PROBE_REASON = "a probe of the JAX program on a TPU"
 
@@ -70,6 +67,11 @@ def test_import_leaves_jax_out():
             "sara_tpu_torch.core.contours, sara_tpu_torch.image.deriche, "
             "sara_tpu_torch.image.im2col, sara_tpu_torch.image.levelsets, "
             "sara_tpu_torch.image.segmentation, sara_tpu_torch.image.slic; "
+            # The quality tool's twin, run through its SIFT and matcher.
+            "import chip_smoke, numpy as np; "
+            "q = chip_smoke.load_tool('eval_detection_quality'); "
+            "img = np.random.RandomState(0).rand(64, 64).astype('f4'); "
+            "q.run_ours(img, img, 0, 256, 128, device='cpu'); "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

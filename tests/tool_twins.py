@@ -26,21 +26,29 @@ def run_twin(tool: str, argv: list):
     return load_tool(tool).main(argv + ["--device", "cpu"])
 
 
-def run_reference(tool: str, argv: list, patch: str = "",
-                  cpu_flag: bool = True) -> str:
-    """The JAX tool ``scripts/<tool>.py`` with ``argv`` (and ``--cpu``) in
-    a subprocess (JAX on the CPU, no x64, as a user runs it), after
-    ``patch``; its standard output."""
+def run_jax(code: str) -> subprocess.CompletedProcess:
+    """``code`` in a fresh interpreter (JAX on the CPU, no x64, as a user
+    runs it) with ``scripts/``, ``tests/`` and the root on its path; fails
+    unless it exits with 0."""
     paths = [str(ROOT / d) for d in ("scripts", "tests", "")]
-    argv = argv + (["--cpu"] if cpu_flag else [])
-    code = "\n".join([f"import sys; sys.path[:0] = {paths!r}", patch,
-                      f"import {tool}", f"sys.argv = [{tool!r}] + {argv!r}",
-                      f"{tool}.main()"])
+    code = f"import sys; sys.path[:0] = {paths!r}\n" + code
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=900)
     assert r.returncode == 0, r.stdout + r.stderr
-    return r.stdout
+    return r
+
+
+def run_reference(tool: str, argv: list, patch: str = "",
+                  cpu_flag: bool = True, stream: str = "stdout") -> str:
+    """The JAX tool ``scripts/<tool>.py`` with ``argv`` (and ``--cpu``) in
+    a subprocess (``run_jax``), after ``patch``; its standard output, or
+    its standard error with ``stream="stderr"`` (a tool that logs
+    there)."""
+    argv = argv + (["--cpu"] if cpu_flag else [])
+    code = "\n".join([patch, f"import {tool}",
+                      f"sys.argv = [{tool!r}] + {argv!r}", f"{tool}.main()"])
+    return getattr(run_jax(code), stream)
 
 
 def last_json(text: str) -> dict:
