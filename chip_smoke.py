@@ -125,7 +125,8 @@ raises, so the script exits nonzero and prints no result line):
    each result equals the port's CPU run on the same inputs (labels and
    contours exactly, SLIC's labels for >= 99.9% of pixels with centres
    within 1e-3 px, the float maps within 1e-5 relative or 1e-4); records
-   ms, device operations, busy / idle and syncs of each function;
+   ms, device operations, busy / idle and syncs of each function (the
+   flow's profile is cut for time: its ms and syncs stay);
 19. phase "demos" (the demo twins ``examples/torch_*.py``): the six demos
    through their ``main``, on the card, at their default widths (20
    synthetic VO frames, 8 SfM views), each gated on its result against the
@@ -146,7 +147,24 @@ raises, so the script exits nonzero and prints no result line):
    >= ``QUALITY_REPEATABILITY_FLOOR``, 8 K1 launches); the sampler counts
    are set to 0 just before each run and read just after (K1's vector
    variant on the runs that detect SIFT on pixels, nothing on the others);
-21. print the kernels line, the card line, then the result line.
+21. phase "bench": the bench twin ``torch_bench.py`` (the headline metric,
+   ``two_view_sift_detect_describe_match_throughput`` in frames/s) through
+   its ``main`` at its defaults (480x640, capacity 8192, 20 pipelined
+   pairs); gates: one JSON line with the metric and a finite positive
+   value, the pipelined counts equal to the first batch's, no sampler
+   launch on the throughput path (the "gather" sampler), the quality run's
+   K1 launches, null OpenCV ratios without cv2, a roofline fraction below
+   1.05 (``phase_bench``);
+22. phase "probes": the nine probe twins ``scripts/torch_probe_*.py``
+   through their ``main(argv)`` at the probes' defaults (``PROBE_RUNS``):
+   the frontend's stage prefixes and trace, K1 against row gathers, the VO
+   stages, the BA pieces, the dense-Schur passes and pass A's sub-stages
+   with the S contraction's TFLOP/s, the segment sums; gates: every stage
+   printed in order, K1 against the bilinear gather, the segment sums'
+   errors, the dense pieces composed equal to one solver iteration
+   (``phase_probes``); the sampler counts set to 0 just before each twin
+   and read just after;
+23. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -635,26 +653,11 @@ def compare_k1_k2(ps, recorded) -> None:
 
 
 def count_syncs(fn) -> dict:
-    """The host syncs PyTorch reports in one call of ``fn``
-    (``torch.cuda.set_sync_debug_mode("warn")``): their count and the
-    source lines (file:line) that made them."""
-    import warnings
+    """The host syncs PyTorch reports in one call of ``fn``: their count and
+    the source lines that made them (``utils/timing.py::count_syncs``)."""
+    from sara_tpu_torch.utils.timing import count_syncs as port_count_syncs
 
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    # The notice that the debug mode is a prototype (emitted once per
-    # process, by set_sync_debug_mode itself) is not a sync.
-    where = [f"{w.filename.split('/')[-1]}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)
-             and "prototype" not in str(w.message)]
-    return {"syncs": len(where),
-            "at": {k: where.count(k) for k in sorted(set(where))}}
+    return port_count_syncs(fn)
 
 
 def make_two_view_scene(seed: int = 0, slots: int = 8192, n_valid: int = 4096,
@@ -2854,10 +2857,10 @@ def phase_e3(ps, card: str, device="cuda", hw=FRAME_HW) -> dict:
     ch = {k: torch.as_tensor(v) for k, v in inp.items()}
     rows, gates = {}, []
 
-    def measure(name, fn):
+    def measure(name, fn, profile=True):
         """``fn``'s result on ``dev``; its ms (median of 5 more calls, each
         after a synchronize), device operations and busy / idle from one
-        profile, and host syncs."""
+        profile (unless ``profile`` is False), and host syncs."""
         res = fn()
         sync = torch.cuda.synchronize if on_card else (lambda: None)
         sync()
@@ -2869,10 +2872,12 @@ def phase_e3(ps, card: str, device="cuda", hw=FRAME_HW) -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         row = {"ms": float(np.median(times))}
         if on_card:
-            prof = profile_frame(fn, row["ms"], top=5, what=f"e3 {name}")
+            prof = profile and profile_frame(fn, row["ms"], top=5,
+                                             what=f"e3 {name}")
             row.update({k: prof[k] for k in ("device_ops", "device_busy_ms",
                                             "idle_share", "profiling_s")}
-                       if prof else {"device_ops": "not measured"})
+                       if prof else {"device_ops": "not measured" + (
+                           "" if profile else " (profile cut)")})
             row["syncs"] = count_syncs(fn)["syncs"]
         rows[name] = row
         return res
@@ -2942,7 +2947,13 @@ def phase_e3(ps, card: str, device="cuda", hw=FRAME_HW) -> dict:
     rows["signed_distance"].update(err_vs_cpu=err, row_steps=4 * 4 * hw[0])
     gates.append((err <= 1e-4, f"signed_distance: card vs CPU {err}"))
 
-    nb = measure("narrow_band_flow", lambda: curvature_flow(dv["phi"], dev))
+    # Cut to keep the script inside its time: this second profile of
+    # ~120,000 launches took 12-22 s on the card; the flow's ms and syncs
+    # stay, and signed_distance's profile shows the same row loops.
+    log("e3: narrow_band_flow's profile cut (~120,000 launches, 12-22 s); "
+        "its ms and syncs are measured")
+    nb = measure("narrow_band_flow", lambda: curvature_flow(dv["phi"], dev),
+                 profile=False)
     cnb = curvature_flow(ch["phi"], cpu)
     err = float((nb.phi.cpu() - cnb.phi).abs().max())
     rows["narrow_band_flow"].update(err_vs_cpu=err, reinits=nb.reinits,
@@ -3193,14 +3204,15 @@ def detection_quality(device="cuda", hw=FRAME_HW, seed=1) -> dict:
     ``warp_homography``, scored by the twin's ``repeatability`` and
     ``match_quality``. The warp fills with zeros where the tool's
     ``cv2.warpPerspective`` reflects the image (``BORDER_REFLECT``), so
-    these numbers are not the CPU test's."""
-    from sara_tpu_torch.image.transform import warp_homography
+    these numbers are not the CPU test's. The warp is the bench twin's
+    (``torch_bench.warp_without_cv2``)."""
+    import torch_bench
 
     q = load_tool("eval_detection_quality")
     h, w = hw
     H = q.make_warp(h, w)
     img = torch.from_numpy(texture(seed, h, w)).to(device)
-    warped = warp_homography(img, np.linalg.inv(H), h, w, fill_value=0.0)
+    warped = torch_bench.warp_without_cv2(img, H, device)
     res = q.score(q.run_ours(img, warped, -1, 8192, 4096, device=device),
                   H, h, w)
     return dict(res, border_fill="zeros (the tool: cv2's reflection)",
@@ -3389,6 +3401,240 @@ def phase_tools(ps, card: str, device="cuda", runs=None) -> dict:
     check(not bad, "; ".join(bad))
     return out
 
+# Phase "bench": the bench twin's gates. Its roofline fraction stays below
+# 1 + 5% (an estimate, not a bound: the work counted is the reference's).
+BENCH_ROOFLINE_GATE = 1.05
+
+
+def phase_bench(ps, card: str, device="cuda", hw=None, capacity=None,
+                iters=None) -> dict:
+    """The bench twin ``torch_bench.py`` through its ``main`` at its
+    defaults (480x640, capacity 8192, batch 1, 20 pipelined pairs; a CPU
+    rehearsal may cut ``hw``, ``capacity`` and ``iters``, each cut
+    printed). Gates: one JSON line on stdout with the headline metric's
+    name and a finite positive value; the pipelined match counts equal the
+    first batch's on the same inputs, and that within 1% of the warm-up
+    pair's; the throughput path launches no sampler kernel (the default
+    "gather" sampler), the quality run K1's vector variant
+    ``QUALITY_K1_LAUNCHES`` times; the quality keys computed, the OpenCV
+    ratios null where cv2 is absent; the roofline fraction below
+    ``BENCH_ROOFLINE_GATE``. Returns the line, what ``bench_ours`` saw and
+    the phase's launches."""
+    import contextlib
+    import io
+
+    import torch_bench as tb
+
+    cuts = []
+    saved = (tb.load_pair, tb.TOTAL_CAP, tb.ITERS)
+    if hw is not None:
+        full_pair = tb.load_pair
+        tb.load_pair = lambda: full_pair(*hw)
+        cuts.append(f"pair {hw[0]}x{hw[1]} (default 480x640)")
+    if capacity is not None:
+        tb.TOTAL_CAP = capacity
+        cuts.append(f"capacity {capacity} (default {saved[1]})")
+    if iters is not None:
+        tb.ITERS = iters
+        cuts.append(f"{iters} pipelined batches (default {saved[2]})")
+    log("bench: " + ("; ".join(cuts) if cuts else "nothing cut (the "
+                     "twin's defaults)"))
+    printed = io.StringIO()
+    last = {}
+    ps.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(printed):
+            res = tb.main(["--device", str(device)], record=last)
+    finally:
+        tb.load_pair, tb.TOTAL_CAP, tb.ITERS = saved
+    secs = time.perf_counter() - t0
+    counts = ps.counts()
+    lines = [ln for ln in printed.getvalue().splitlines() if ln.strip()]
+    out = {"s": secs, "line": res, "bench_ours": last,
+           "sampler_counts": counts, "cuts": cuts}
+    log(f"bench: {secs:.2f} s", json.dumps(out, default=str), f"({card})")
+    bad = []
+    try:
+        line = json.loads(lines[-1]) if len(lines) == 1 else None
+    except ValueError:
+        line = None
+    if line is None:
+        bad.append(f"stdout holds {len(lines)} lines, not one JSON line")
+    elif (line.get("metric") != "two_view_sift_detect_describe_match_throughput"
+          or line.get("unit") != "frames/s"
+          or not (isinstance(line.get("value"), float)
+                  and math.isfinite(line["value"]) and line["value"] > 0)):
+        bad.append(f"the line {line}")
+    pipe = last["pipelined_counts"]
+    if any(c != last["first_counts"] for c in pipe):
+        bad.append(f"pipelined counts {pipe} differ from the first batch's "
+                   f"{last['first_counts']}")
+    first = np.asarray(last["first_counts"], float)
+    if np.abs(first - last["matches"]).max() > 0.01 * last["matches"]:
+        bad.append(f"the first batch's matches {last['first_counts']} vs "
+                   f"the warm-up pair's {last['matches']}")
+    if any(last["sampler_launches"].values()):
+        bad.append(f"the throughput path launched {last['sampler_launches']}")
+    quality_k1 = {k: v - last["sampler_launches"][k] for k, v in counts.items()}
+    if torch.device(device).type == "cuda" and (
+            quality_k1.pop("K1") != QUALITY_K1_LAUNCHES
+            or any(quality_k1.values())):
+        bad.append(f"the quality run launched {counts}")
+    try:
+        import cv2  # noqa: F401
+        no_cv = False
+    except ImportError:
+        no_cv = True
+    if res.get("repeatability") is None:
+        bad.append("no quality keys")
+    if no_cv and any(res.get(k) is not None
+                     for k in tb.OPENCV_KEYS + ("vs_baseline",)):
+        bad.append("OpenCV ratios without cv2")
+    if not res.get("roofline_frac", 2.0) < BENCH_ROOFLINE_GATE:
+        bad.append(f"roofline fraction {res.get('roofline_frac')}")
+    check(not bad, "bench: " + "; ".join(bad))
+    return out
+
+
+# The runs of phase "probes": (twin scripts/torch_<probe>.py, argv, the cut
+# against the probe's defaults, the stage names its output prints in
+# order; each name is the probe's own). A line matches a stage where it
+# starts with the name, after a leading "STAGE ".
+PROBE_RUNS = [
+    ("probe_sift_stages", [], "nothing cut (480x640)",
+     ["pyramid", "+detect", "+orient", "+descr"] * 2),
+    ("probe_sift_prefix", [], "nothing cut (cap 3072, 5 refinements)",
+     ["pyramid", "dog", "stencil", "detect", "gradient", "orient_maps",
+      "orient_peaks", "compact", "desc", "full+merge"]),
+    ("probe_trace_frontend", [], "nothing cut (cap 4096, 3 frames)",
+     ["compile+first", "device total"]),
+    ("probe_pallas_sampler", [], "nothing cut ((5, 480, 640, 36) bf16, "
+     "K = 5120, N = 16)",
+     ["xla nearest", "xla bilinear", "pallas patches",
+      "pallas vs bilinear max abs err"]),
+    ("probe_vo_stages", [], "nothing cut (240x320, 300 samples)",
+     ["SIFT frontend", "matching", "E-RANSAC", "PnP RANSAC",
+      "triangulation"]),
+    ("probe_ba_stages", [], "nothing cut (C=256, P=60k, O=800k, 15 CG)",
+     ["cost", "jacobians_closed", "jacobians", "gn_blocks(segsum)",
+      "inv_blocks(V 3x3)", "inv_blocks(U 6x6)", "schur_matvec x1",
+      "schur_matvec x", "solve_lm(full)", "LM iter (full step)"]),
+    ("probe_dense_ba", [], "nothing cut (C=256, P=100k, O=800k)",
+     ["Sp", "pass A (stats scan)", "dense solve ", "pass B (backsub)",
+      "cost pass", "full LM iter"]),
+    ("probe_dense_passA", [], "nothing cut (C=256, P=100k, O=800k)",
+     ["jac", "ucat", "vw", "d", "full"]),
+    ("probe_segsum", [], "nothing cut (O=800k; 256 and 60k segments)",
+     ["--- ", "scatter", "scatter_sorted", "cumsum", "cumsum2"] * 2),
+]
+# Phase "probes": the segment sums' largest errors against a float64
+# reference. The scatters add each row once: within 1e-5 per segment over
+# |segment| + mean |segment| (the probe's measure). A cumsum's segment is
+# the difference of two rounded prefix sums, and a float32 scan's rounding
+# errors add up like a random walk over its O rows: the cumsums are held
+# to sqrt(O) float32 epsilons (2^-23) of the largest prefix (Higham's
+# probabilistic bound, lambda = 2). The CPU's cumsum accumulates in
+# float64 (0.55-1.38 epsilons at O = 800k, an 8-core Intel Xeon), the
+# card's in float32.
+SEGSUM_SCATTER_TOL = 1e-5
+# Twin 4 on bfloat16 maps: the probe expects ~1e-2 between its kernel and
+# the bilinear gather (the TPU kernel weights in bfloat16).
+PROBE_BF16_TOL = 1e-2
+
+
+def stages_in_order(text: str, names: list) -> list:
+    """The names of ``names`` not found, in order, at the starts of the
+    lines of ``text`` (a leading "STAGE " skipped)."""
+    j = 0
+    for ln in text.splitlines():
+        ln = ln[len("STAGE "):] if ln.startswith("STAGE ") else ln
+        if j < len(names) and ln.startswith(names[j]):
+            j += 1
+    return names[j:]
+
+
+def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
+    """The nine probe twins ``scripts/torch_probe_*.py`` through their
+    ``main(argv)`` at the probes' defaults (``PROBE_RUNS``, each cut
+    printed). Gates: each printed every stage of its probe, in order;
+    twin 4's K1 output within ``TOLERANCE`` of its bilinear gather on
+    float32 maps at the probe's shape (a comparison: not counted) and
+    within ``PROBE_BF16_TOL`` on the probe's bfloat16 maps; twin 9's
+    scatters within ``SEGSUM_SCATTER_TOL`` and its cumsums within sqrt(O)
+    float32 epsilons of the largest prefix of the float64 sums; twin 7's pieces,
+    composed, at one ``dense_schur_bundle_adjust`` iteration's cost within
+    1e-6 relative. The sampler counts are set to 0 just before each run
+    and read just after: twin 4 launches K1's vector variant, no other
+    twin a sampler kernel. Returns each run's seconds, result, printed
+    lines and launches."""
+    import contextlib
+    import io
+
+    dev = torch.device(device)
+    out, bad = {}, []
+    for name, argv, cut, names in runs or PROBE_RUNS:
+        mod = load_tool(name)
+        argv = list(argv) + ["--device", str(device)]
+        printed = io.StringIO()
+        ps.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(printed):
+            res = mod.main(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ps.counts()
+        text = printed.getvalue()
+        missing = stages_in_order(text, names)
+        if missing:
+            bad.append(f"{name}: no stage {missing}")
+        k1 = counts.pop("K1")
+        if any(counts.values()) or (dev.type == "cuda" and (
+                (k1 > 0) != (name == "probe_pallas_sampler"))):
+            bad.append(f"{name}: launched K1 {k1} times and {counts}")
+        counts["K1"] = k1
+        if name == "probe_pallas_sampler":
+            bf16 = res["max_abs_err"]
+            maps, si, ys, xs = mod.make_inputs(dev, torch.float32,
+                                               **mod.SHAPE)
+            fns = mod.samplers(maps, si)
+            f32 = float((fns["pallas patches"](ys, xs)
+                         - fns["xla bilinear"](ys, xs)).abs().max())
+            res.update(max_abs_err_f32=f32)
+            if not (f32 <= TOLERANCE and bf16 <= PROBE_BF16_TOL):
+                bad.append(f"{name}: K1 vs the bilinear gather {f32} (f32),"
+                           f" {bf16} (bf16)")
+        elif name == "probe_segsum":
+            res = {f"{label} {v}": r for (label, v), r in res.items()}
+            for key, r in res.items():
+                ok = (r["prefix_eps"] <= math.sqrt(r["rows"])
+                      if "cumsum" in key
+                      else r["max_rel_err"] <= SEGSUM_SCATTER_TOL)
+                if not ok:
+                    bad.append(f"{name}: {key} error {r}")
+        elif name == "probe_dense_ba":
+            a, b = res["cost_composed"], res["cost_solver"]
+            if not abs(a - b) <= 1e-6 * abs(b):
+                bad.append(f"{name}: composed cost {a} vs solver {b}")
+        elif name == "probe_trace_frontend" and dev.type == "cuda" and not res:
+            bad.append(f"{name}: no device events")
+        out[name] = {"s": secs, "cut": cut, "result": res,
+                     "sampler_counts": counts,
+                     "printed": text.strip().splitlines()}
+        log(f"probes: {name} ({cut}): {secs:.2f} s, sampler "
+            f"{json.dumps(counts)}", json.dumps(res, default=str))
+        log("\n".join(text.strip().splitlines()))
+    out["sampler_counts"] = {"K1": sum(r["sampler_counts"]["K1"]
+                                       for r in out.values())}
+    log("probes", json.dumps({k: round(v["s"], 2) for k, v in out.items()
+                              if k != "sampler_counts"}),
+        f"K1 launches {out['sampler_counts']['K1']} ({card})")
+    check(not bad, "; ".join(bad))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the GPU",
@@ -3434,6 +3680,8 @@ def main() -> int:
     e3 = timed("e3", phase_e3, ps, card)
     demos = timed("demos", phase_demos, ps, card)
     tools = timed("tools", phase_tools, ps, card)
+    bench = timed("bench", phase_bench, ps, card)
+    probes = timed("probes", phase_probes, ps, card)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -3469,7 +3717,9 @@ def main() -> int:
         entry("patch_sampler", "K1", "sara_tpu/ops/patch_sampler.py:170",
               rows, launches + k1_on_k2_path + vo["sampler_counts"]["K1"]
               + loop["sampler_counts"]["K1"] + lp_launches
-              + tools["sampler_counts"]["K1"],
+              + tools["sampler_counts"]["K1"]
+              + bench["sampler_counts"]["K1"]
+              + probes["sampler_counts"]["K1"],
               lp_err, "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
                                 "pack_x": k1_on_k2_path,
@@ -3480,7 +3730,9 @@ def main() -> int:
                                 "propagation": pr["sampler_counts"]["K1"],
                                 "e3": e3["sampler_counts"]["K1"],
                                 "demos": demos["sampler_counts"]["K1"],
-                                "tools": tools["sampler_counts"]["K1"]}),
+                                "tools": tools["sampler_counts"]["K1"],
+                                "bench": bench["sampler_counts"]["K1"],
+                                "probes": probes["sampler_counts"]["K1"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

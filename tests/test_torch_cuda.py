@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels, of Slice B's estimators, of
 Slice C's bundle adjustment and odometry core, of Slice D's pose-graph
 optimizer, rotation averaging, checkpoints and global SfM, of Slice E's
-chessboard device program, calibration LM and Hough lines, and of the E3
-modules and the demo twins on the card (marker ``cuda``).
+chessboard device program, calibration LM and Hough lines, of the E3
+modules and the demo twins, and of the bench twin's counts on the card
+(marker ``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -833,3 +834,24 @@ def test_demo_twins_on_card(cuda):
     out = cs.phase_demos(ps, "card test", device=cuda, width=240,
                          vo_frames=6, sfm_views=4)
     assert set(out) >= set(cs.DEMOS)
+
+
+@pytest.mark.cuda
+def test_bench_twin_counts_on_card_match_cpu(cuda, monkeypatch):
+    """The bench twin's ``bench_ours`` on the noise pair at 240x320 (its
+    capacity 8192, two pipelined pairs): the card's keypoint and match
+    counts, warm-up and pipelined, within 1% of the CPU's."""
+    _chip_smoke()
+    import torch_bench as tb
+
+    monkeypatch.setattr(tb, "ITERS", 2)
+    a, b = tb.load_pair(240, 320)
+    seen = {}
+    for dev in (cuda, "cpu"):
+        tb.bench_ours(a, b, device=dev, record=seen.setdefault(str(dev), {}))
+    card, cpu = seen["cuda"], seen["cpu"]
+    for got, want in ((card["keypoints"], cpu["keypoints"]),
+                      ([card["matches"]] + card["pipelined_counts"],
+                       [cpu["matches"]] + cpu["pipelined_counts"])):
+        np.testing.assert_allclose(got, want, rtol=0.01)
+    assert cpu["matches"] > 100

@@ -28,13 +28,36 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_SOURCES = (sorted((ROOT / "sara_tpu_torch").rglob("*.py"))
                 + sorted((ROOT / "examples").glob("torch_*.py"))
                 + sorted((ROOT / "scripts").glob("torch_*.py"))
-                + [ROOT / "chip_smoke.py"])
+                + [ROOT / "chip_smoke.py", ROOT / "torch_bench.py"])
 # The command-line tools of scripts/ that have no torch_ twin, and why.
 TOOLS_WITHOUT_TWIN = {
     "calibrate_camera.py": "its twin is the module sara_tpu_torch/calib/"
                            "cli.py (python -m sara_tpu_torch.calib.cli)",
 }
-PROBE_REASON = "a probe of the JAX program on a TPU"
+# The probes of scripts/ not ported yet, in the order ROADMAP §1 queues
+# them, and why each waits (none is declared unnecessary).
+PROBES_QUEUED = {
+    "probe_desc_micro.py": "queued: descriptor micro-benchmarks",
+    "probe_frontend_sweep.py": "queued: the frontend's capacity sweep",
+    "probe_dense_ablate.py": "queued: dense-Schur ablations",
+    "probe_dense_micro.py": "queued: dense-Schur micro-benchmarks",
+    "probe_ab_vo.py": "queued: an A/B of two VO configurations",
+    "probe_batch_parity.py": "queued: batched against single frontends",
+    "probe_city_stages.py": "queued: config 5's stages",
+    "probe_sfm_ate_stages.py": "queued: global SfM's ATE by stage",
+    "probe_tracker_flat.py": "queued: the flat tracker",
+    "probe_sampling_quality.py": "waits for the reference's photographs "
+                                 "in the repo",
+    "probe_dog_quality.py": "waits for the reference's photographs in the "
+                            "repo",
+    "probe_capacity3072.py": "queued: it bisects a TPU worker fault; its "
+                             "twin runs the same cap-3072 / K2 = 3840 "
+                             "program on the card",
+    "probe_fault_bisect.py": "queued: it bisects a TPU worker fault (as "
+                             "probe_capacity3072.py)",
+    "probe_fault_desc.py": "queued: it bisects a TPU worker fault (as "
+                           "probe_capacity3072.py)",
+}
 
 
 def test_import_leaves_jax_out():
@@ -270,22 +293,28 @@ def test_every_module_has_a_twin():
 
 def test_every_tool_has_a_twin():
     """Every command-line tool of scripts/ has a twin scripts/torch_<name>,
-    or a reason in TOOLS_WITHOUT_TWIN (the TPU probes probe_*.py: a probe
-    of the JAX program on a TPU); every twin has its tool."""
+    or a reason in TOOLS_WITHOUT_TWIN; every probe_*.py has one too or
+    stands in PROBES_QUEUED with its reason (14 of the 23); bench.py's
+    twin is torch_bench.py at the root; every twin has its tool."""
     tools = sorted(p.name for p in (ROOT / "scripts").glob("*.py")
                    if not p.name.startswith("torch_"))
     missing = [t for t in tools
                if not (ROOT / "scripts" / f"torch_{t}").exists()
-               and t not in TOOLS_WITHOUT_TWIN
-               and not t.startswith("probe_")]
+               and t not in TOOLS_WITHOUT_TWIN and t not in PROBES_QUEUED]
     assert not missing, f"no twin for {missing}"
     orphans = [p.name for p in (ROOT / "scripts").glob("torch_*.py")
                if p.name[len("torch_"):] not in tools]
     assert not orphans, f"twins without a tool: {orphans}"
     assert all(not (ROOT / "scripts" / f"torch_{t}").exists()
-               for t in TOOLS_WITHOUT_TWIN)
+               for t in list(TOOLS_WITHOUT_TWIN) + list(PROBES_QUEUED))
+    assert set(PROBES_QUEUED) <= set(tools)
     assert (ROOT / "sara_tpu_torch" / "calib" / "cli.py").exists()
-    assert sum(t.startswith("probe_") for t in tools) == 23, PROBE_REASON
+    assert (ROOT / "torch_bench.py").exists() and (ROOT / "bench.py").exists()
+    probes = [t for t in tools if t.startswith("probe_")]
+    assert len(probes) == 23
+    assert len(PROBES_QUEUED) == 14
+    assert sum((ROOT / "scripts" / f"torch_{t}").exists()
+               for t in probes) == 9
 
 
 @pytest.mark.parametrize("rel", PORTED)
