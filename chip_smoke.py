@@ -45,10 +45,12 @@ raises, so the script exits nonzero and prints no result line):
 8. phase "vo" (Slice C): 30 renders of ``tests/render3d.py``'s room at
    480x640 on ``scripts/eval_vo.py``'s loop and configuration through
    ``OdometryPipeline`` (frames 0-11 by ``process_frame``, 12-29 by
-   ``process_frames``), the sampler counts set to 0 just before and read
-   just after: at least 29 accepted, ATE <= 0.10, > 500 map points, K1's
-   vector variant on every frame, the native union-find; records ms per
-   frame and per stage, BA ms per call, host syncs and a profile;
+   ``process_frames``, whose windows of 4 go through the batched frontend),
+   the sampler counts set to 0 just before and read just after: at least
+   29 accepted, ATE <= 0.10, > 500 map points, K1's vector variant once per
+   octave of every frame of ``process_frame`` and of every window, the
+   native union-find; records ms per frame and per stage, BA ms per call,
+   host syncs and a profile;
 9. phase "ba": ``scripts/bench_ba.py``'s "large" problem (C=256,
    P=100,000, O=800,000, float32) through ``bundle_adjust`` (dense Schur),
    a ``DenseSchurSession`` solved twice and ``bundle_adjust_cg``, 10 LM
@@ -164,7 +166,19 @@ raises, so the script exits nonzero and prints no result line):
    errors, the dense pieces composed equal to one solver iteration
    (``phase_probes``); the sampler counts set to 0 just before each twin
    and read just after;
-23. print the kernels line, the card line, then the result line.
+23. phase "batch" (the batched frontend): windows of B = 1, 4 and 8
+   480x640 frames (the frame pair, then renders of the room loop) through
+   ``_compute_sift_batch`` with the kernel sampler and one batched
+   ``_match_sets``, VO's ``_fused_frontend_batch`` on the room frames, and
+   ``torch_bench.main`` at ``SARA_BENCH_BATCH`` = 4; gates: one K1 launch
+   per octave per window whatever B (counted from 0 just before one window
+   and read just after), each K1 output of the 8-frame window (the
+   frame-folded field) within 1e-5 of the plain version, every frame's
+   keypoints and match sets against the frame alone, 0 host syncs in
+   detection and matching, B = 8's device operations at most 1.2 x B = 1's,
+   the bench line (``phase_batch``); records ms per window, frames/s, peak
+   memory and syncs per B;
+24. print the kernels line, the card line, then the result line.
 Each phase logs its seconds.
 """
 
@@ -886,17 +900,20 @@ def phase_vo(ps, card: str, device="cuda", n_frames: int = VO_FRAMES,
              warm: int = VO_WARM, hw=VO_HW) -> dict:
     """The VO path at full width: ``n_frames`` renders of the room through
     ``OdometryPipeline``, frames 0 .. warm - 1 by ``process_frame`` and the
-    rest by ``process_frames`` (window 4). The sampler counts are set to 0
-    just before and read just after. Gates: all frames but one accepted,
-    ATE <= 0.10 after similarity alignment, > 500 map points, the native
-    union-find, and on the card K1's vector variant on every frame with no
-    index copy. Records steady ms per frame, the steady frames' time per
-    stage (detection, relative pose, PnP, BA, the rest) and BA ms per call.
+    rest by ``process_frames`` (windows of 4 through the batched frontend,
+    ``sfm/odometry.py::_fused_frontend_batch``). The sampler counts are
+    set to 0 just before and read just after. Gates: all frames but one
+    accepted, ATE <= 0.10 after similarity alignment, > 500 map points, the
+    native union-find, and on the card K1's vector variant, one launch per
+    octave for each frame of ``process_frame`` and for each window (not
+    each frame) of ``process_frames``, with no index copy. Records steady
+    ms per frame, the steady frames' time per stage (the fused window,
+    detection, relative pose, PnP, BA, the rest) and BA ms per call.
     Then two more frames of the loop, with the stage timers removed: one
     for the host syncs, one profiled. Returns the measurements."""
     from sara_tpu_torch.features.api import compute_sift_keypoints
     from sara_tpu_torch.sfm import OdometryPipeline
-    from sara_tpu_torch.sfm import disjoint_sets
+    from sara_tpu_torch.sfm import disjoint_sets, odometry
     from sara_tpu_torch.utils import ate_rmse
 
     dev = torch.device(device)
@@ -919,7 +936,8 @@ def phase_vo(ps, card: str, device="cuda", n_frames: int = VO_FRAMES,
     pipe = OdometryPipeline(K, cfg, device=dev)
     # Host clock around each stage, ending in a synchronize (the stages'
     # own syncs aside, the pipeline does not overlap them).
-    stage_ms = {name: [] for name in VO_STAGES}
+    stage_ms = {name: [] for name in VO_STAGES + ("_fused_window",)}
+    B = cfg.frontend_batch
 
     def timed(name, fn):
         def run(*a, **kw):
@@ -933,6 +951,8 @@ def phase_vo(ps, card: str, device="cuda", n_frames: int = VO_FRAMES,
 
     for name in VO_STAGES:
         setattr(pipe, name, timed(name, getattr(pipe, name)))
+    fused = odometry._fused_frontend_batch
+    odometry._fused_frontend_batch = timed("_fused_window", fused)
     ps.reset_counts()
     t_start = time.perf_counter()
     ok = [bool(pipe.process_frame(imgs[f], f)) for f in range(warm)]
@@ -946,6 +966,8 @@ def phase_vo(ps, card: str, device="cuda", n_frames: int = VO_FRAMES,
     counts = ps.counts()
     for name in VO_STAGES:
         delattr(pipe, name)
+    odometry._fused_frontend_batch = fused
+    windows = len(stage_ms["_fused_window"])
 
     accepted = int(sum(ok))
     ate = ate_rmse(pipe.trajectory(), centers[:n_frames][np.flatnonzero(ok)])
@@ -964,18 +986,20 @@ def phase_vo(ps, card: str, device="cuda", n_frames: int = VO_FRAMES,
            "steady_stage_ms_per_frame": stages,
            "ba_calls": len(ba_ms),
            "ba_ms_median": float(np.median(ba_ms)) if ba_ms else None,
-           "k1_per_frame": per_frame, "sampler_counts": counts,
-           "union_find": backend}
+           "k1_per_frame": per_frame, "windows": windows,
+           "sampler_counts": counts, "union_find": backend}
     log("vo", json.dumps(out), f"({card})")
     check(accepted >= n_frames - 1, f"vo: {accepted}/{n_frames} accepted")
     check(ate <= 0.10, f"vo: ATE {ate}")
     check(out["map_points"] > 500, f"vo: {out['map_points']} map points")
     if dev.type == "cuda":
-        check(per_frame >= 1 and counts == {
-            "K1": n_frames * per_frame, "K1 general": 0, "K2": 0,
-            "K2 general": 0, "index copies": 0},
-            f"vo: expected {n_frames} x {per_frame} launches of K1's vector "
-            f"variant and nothing else, got {counts}")
+        check(per_frame >= 1 and windows == -(-(n_frames - warm) // B)
+              and counts == {
+                  "K1": (warm + windows) * per_frame, "K1 general": 0,
+                  "K2": 0, "K2 general": 0, "index copies": 0},
+              f"vo: expected ({warm} frames + {windows} windows) x "
+              f"{per_frame} launches of K1's vector variant and nothing "
+              f"else, got {counts}")
         out["syncs"] = count_syncs(
             lambda: pipe.process_frame(imgs[n_frames], n_frames))
         log("vo: host syncs in one steady frame", json.dumps(out["syncs"]))
@@ -3527,6 +3551,12 @@ PROBE_RUNS = [
      ["jac", "ucat", "vw", "d", "full"]),
     ("probe_segsum", [], "nothing cut (O=800k; 256 and 60k segments)",
      ["--- ", "scatter", "scatter_sorted", "cumsum", "cumsum2"] * 2),
+    ("probe_batch_parity", [], "nothing cut (5 frames at 240x320)",
+     ['{"probe": "setup"', '{"probe": "detect"', '{"probe": "match"',
+      '{"probe": "ransac"']),
+    ("probe_ab_vo", ["--frames", "20", "--seeds", "2"],
+     "20 frames and 2 seeds (default 40 and 3) at 240x320",
+     ['{"mode": ', '{"mode": ', '{"summary": ', '{"summary": ']),
 ]
 # Phase "probes": the segment sums' largest errors against a float64
 # reference. The scatters add each row once: within 1e-5 per segment over
@@ -3555,10 +3585,14 @@ def stages_in_order(text: str, names: list) -> list:
 
 
 def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
-    """The nine probe twins ``scripts/torch_probe_*.py`` through their
+    """The eleven probe twins ``scripts/torch_probe_*.py`` through their
     ``main(argv)`` at the probes' defaults (``PROBE_RUNS``, each cut
     printed). Gates: each printed every stage of its probe, in order;
-    twin 4's K1 output within ``TOLERANCE`` of its bilinear gather on
+    the batch probe's batched detection within 0.05 px of the single one
+    for >= 95% of each frame's keypoints, its match masks differing in <=
+    1% of a pair's matches and, with the same samples, its RANSAC
+    successes the single ones'; every A/B VO run accepting all frames but
+    one; twin 4's K1 output within ``TOLERANCE`` of its bilinear gather on
     float32 maps at the probe's shape (a comparison: not counted) and
     within ``PROBE_BF16_TOL`` on the probe's bfloat16 maps; twin 9's
     scatters within ``SEGSUM_SCATTER_TOL`` and its cumsums within sqrt(O)
@@ -3620,6 +3654,19 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
                 bad.append(f"{name}: composed cost {a} vs solver {b}")
         elif name == "probe_trace_frontend" and dev.type == "cuda" and not res:
             bad.append(f"{name}: no device events")
+        elif name == "probe_batch_parity":
+            if min(f["frac_matched"] for f in res["detect"]["per_frame"]) \
+                    < 0.95 or any(
+                    p["mask_diff"] > 0.01 * p["n_single"]
+                    for p in res["match"]["per_pair"]) or any(
+                    p["single"]["ok"] != p["batch"]["ok"]
+                    for p in res["ransac"]["per_pair"]):
+                bad.append(f"{name}: batched against single {res}")
+        elif name == "probe_ab_vo":
+            frames = int(argv[argv.index("--frames") + 1])
+            if any(r["accepted"] < frames - 1 for runs in
+                   res["runs"].values() for r in runs):
+                bad.append(f"{name}: {res['runs']}")
         out[name] = {"s": secs, "cut": cut, "result": res,
                      "sampler_counts": counts,
                      "printed": text.strip().splitlines()}
@@ -3632,6 +3679,269 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
                               if k != "sampler_counts"}),
         f"K1 launches {out['sampler_counts']['K1']} ({card})")
     check(not bad, "; ".join(bad))
+    return out
+
+
+# Phase "batch": the batched frontend at these window sizes, 480x640.
+BATCH_SIZES = (1, 4, 8)
+# A window of 8 frames launches at most this many times B = 1's device
+# operations (the launches of one frame, not eight).
+BATCH_LAUNCH_RATIO = 1.2
+# A frame of a batch against the frame alone: the share of its keypoints
+# within 0.5 px and 1% in scale, and of its matches (position pairs within
+# 0.5 px) on pairs of >= 100 matches. cuDNN may round a batch's blurs
+# unlike one frame's, which flips borderline extrema.
+BATCH_OVERLAP_FLOOR = 0.98
+BATCH_MATCH_FLOOR = 0.95
+
+
+def batch_frames(n: int, hw=FRAME_HW) -> np.ndarray:
+    """(n, h, w): the frame pair of phase 4 (A, then B = A shifted 16 px),
+    then renders of the VO loop through ``make_room(seed=1)``."""
+    h, w = hw
+    tex = texture(1, h, w + SHIFT_PX)
+    _, room, _ = vo_frames(max(n - 2, 0), hw)
+    return np.stack([tex[:, SHIFT_PX:], tex[:, :w]] + room)[:n]
+
+
+def match_share(la, ra, mask_a, j_a, lb, rb, mask_b, j_b) -> tuple:
+    """(share of matches a, as (left xy, right xy) pairs, with a pair of b
+    within 0.5 px in every coordinate; the number of a's matches).
+    Tensors on one device."""
+    pa = torch.cat([la[mask_a], ra[j_a[mask_a].long()]], dim=1)
+    pb = torch.cat([lb[mask_b], rb[j_b[mask_b].long()]], dim=1)
+    if len(pa) == 0:
+        return 1.0, 0
+    if len(pb) == 0:
+        return 0.0, len(pa)
+    d = torch.cdist(pa[None], pb[None], p=float("inf"))[0].amin(dim=1)
+    return float((d < 0.5).double().mean()), len(pa)
+
+
+def measure_window(ps, fn, B: int, on_card: bool, what: str,
+                   recorded: list | None = None) -> tuple:
+    """One window ``fn`` of B frames: a warm-up call, one counted call
+    (the sampler counts set to 0 just before and read just after; with
+    ``recorded``, each K1 launch's inputs and output appended), then the
+    median of 3 timed calls, each ending in a synchronize; on the card
+    also the counted call's peak memory, the host syncs of one call and a
+    profile's device operations. Returns (the counted call's result, the
+    record)."""
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    fn()
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    wrapper = ps.sample_field_patches
+
+    def recording(*args, **kwargs):
+        res = wrapper(*args, **kwargs)
+        recorded.append((args[:4], res))
+        return res
+
+    if recorded is not None:
+        ps.sample_field_patches = recording
+    try:
+        ps.reset_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        sync()
+        rec = {"B": B, "first_ms": (time.perf_counter() - t0) * 1e3,
+               "sampler_counts": ps.counts()}
+    finally:
+        ps.sample_field_patches = wrapper
+    if on_card:
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    times = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rec["ms_per_window"] = float(np.median(times))
+    rec["frames_per_s"] = 1e3 * B / rec["ms_per_window"]
+    if on_card:
+        rec["syncs"] = count_syncs(fn)
+        prof = profile_frame(fn, rec["ms_per_window"], what=what)
+        rec["device_ops"] = prof["device_ops"] if prof else None
+        rec["device_busy_ms"] = prof["device_busy_ms"] if prof else None
+    return result, rec
+
+
+def phase_batch(ps, card: str, device="cuda", hw=FRAME_HW,
+                sizes=BATCH_SIZES, bench_batch: int = 4) -> dict:
+    """The batched frontend: windows of B = ``sizes`` frames of
+    ``batch_frames`` through ``_compute_sift_batch`` (the kernel sampler,
+    bilinear, phase 4's configuration) and one ``_match_sets`` over the
+    window's pairs (frame k against frame k - 1, frame 0 against frame 0
+    alone), then VO's ``_fused_frontend_batch`` on the room frames
+    (``vo_config``), then ``torch_bench.main`` at ``SARA_BENCH_BATCH`` =
+    ``bench_batch``.
+
+    Per B it records ms per window and frames/s (host clock, median of 3
+    after a warm-up, each ending in a synchronize), device operations
+    (a profile), host syncs of the detection + matching (gate: 0) and of
+    the fused window (with E-RANSAC; logged), peak memory, and K1's
+    launches, counted from 0 just before and read just after one window:
+    one per octave whatever B (gate), no other kernel. Gates besides: each
+    frame's keypoints overlap the frame alone by ``BATCH_OVERLAP_FLOOR``
+    and its counts within 2%; the match sets of pairs of >= 100 matches
+    share ``BATCH_MATCH_FLOOR``; B = max's device operations at most
+    ``BATCH_LAUNCH_RATIO`` x B = 1's; every K1 output of B = max's window
+    (the frame-folded field) within ``TOLERANCE`` of the plain version (a
+    comparison of recorded outputs: no launch); the bench line's metric
+    finite and positive, its pipelined counts those of its first batch and
+    within 1% of the warm-up pair's matches, no sampler launch on its
+    throughput path. Returns the measurements and K1's launches."""
+    import contextlib
+    import io
+
+    import torch_bench as tb
+    from sara_tpu_torch.features.api import (SIFTParams, _compute_sift_batch,
+                                             compute_sift_keypoints)
+    from sara_tpu_torch.image.pyramid import gaussian_pyramid
+    from sara_tpu_torch.matching.brute_force import (MatchParams,
+                                                     _match_sets,
+                                                     match_descriptors)
+    from sara_tpu_torch.sfm.odometry import _fused_frontend_batch
+    from sara_tpu_torch.utils.host import fetch, put
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    params = SIFTParams(desc_sampler="kernel", desc_sample_nearest=False)
+    mp = MatchParams(ratio=0.8)
+    nmax = max(sizes)
+    stack = put(batch_frames(nmax, hw), dev)
+    n_oct = len(gaussian_pyramid(stack[0], params.pyramid).octaves)
+    singles = [compute_sift_keypoints(stack[f], params, device=dev)
+               for f in range(nmax)]
+    single_m = [match_descriptors(singles[max(f - 1, 0)], singles[f], mp,
+                                  device=dev) for f in range(nmax)]
+    single_h = [fetch(k.xy, k.scale, k.mask) for k in singles]
+    out, bad, k1_total = {"sizes": {}}, [], 0
+
+    def window(sub):
+        kb = _compute_sift_batch(sub, params, device=dev)
+        left = type(kb)(*(torch.cat([f[:1], f[:-1]]) for f in kb))
+        j, ok, _ = _match_sets(left.descriptors, left.mask, kb.descriptors,
+                               kb.mask, mp.ratio, mp.mutual)
+        return kb, left, j, ok
+
+    for B in sizes:
+        sub = stack[:B]
+        recorded = []
+        (kb, left, j, ok), rec = measure_window(
+            ps, lambda: window(sub), B, on_card, f"batch window B={B}",
+            recorded)
+        counts = rec["sampler_counts"]
+        k1_total += counts["K1"]
+        if on_card:
+            rec["k1_max_abs_err"] = max(
+                float((res - ps._sample_patches_reference(*args)).abs().max())
+                for args, res in recorded)
+            if not rec["k1_max_abs_err"] <= TOLERANCE:
+                bad.append(f"B={B}: K1 vs plain {rec['k1_max_abs_err']}")
+            want = {"K1": n_oct, "K1 general": 0, "K2": 0,
+                    "K2 general": 0, "index copies": 0}
+            if counts != want:
+                bad.append(f"B={B}: launches {counts}, not one K1 per "
+                           f"octave ({n_oct})")
+            if rec["syncs"]["syncs"]:
+                bad.append(f"B={B}: detection + matching synced "
+                           f"{rec['syncs']}")
+        # Against the frames alone: keypoints and match sets.
+        xy, sc, mk = fetch(kb.xy, kb.scale, kb.mask)
+        overlaps, shares = [], []
+        for f in range(B):
+            sxy, ssc, smk = single_h[f]
+            overlaps.append(kp_overlap(xy[f][mk[f]], sc[f][mk[f]],
+                                       sxy[smk], ssc[smk]))
+            if abs(int(mk[f].sum()) - int(smk.sum())) > 0.02 * smk.sum():
+                bad.append(f"B={B} frame {f}: {int(mk[f].sum())} keypoints "
+                           f"against {int(smk.sum())} alone")
+            sm = single_m[f]
+            share, n = match_share(
+                singles[max(f - 1, 0)].xy, singles[f].xy, sm.mask, sm.j,
+                left.xy[f], kb.xy[f], ok[f], j[f])
+            shares.append((share, n))
+            if n >= 100 and share < BATCH_MATCH_FLOOR:
+                bad.append(f"B={B} pair {f}: match share {share} of {n}")
+        rec["kp_overlap"] = overlaps
+        rec["match_share"] = shares
+        if min(overlaps) < BATCH_OVERLAP_FLOOR:
+            bad.append(f"B={B}: keypoint overlap {overlaps}")
+        out["sizes"][B] = rec
+        log(f"batch: B={B}", json.dumps(rec, default=str), f"({card})")
+
+    # VO's fused window on the room frames (frames 2..), vo_config.
+    cfg = vo_config()
+    K, room, _ = vo_frames(nmax + 1, hw)
+    room_dev = put(np.stack(room), dev)
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    prev = compute_sift_keypoints(room_dev[0], cfg.sift, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fused(B):
+        return _fused_frontend_batch(
+            room_dev[1:B + 1], None, None, prev, gen, Kt, cfg.sift,
+            cfg.match_ratio, cfg.rel_pose_threshold_px,
+            cfg.rel_pose_samples_fast, cfg.rel_pose_min_inliers, False)
+
+    out["fused"] = {}
+    for B in sizes:
+        (_, _, res, _, _), rec = measure_window(
+            ps, lambda: fused(B), B, on_card, f"fused window B={B}")
+        rec["success"] = fetch(res.success)[0].tolist()
+        k1_total += rec["sampler_counts"]["K1"]
+        if not all(rec["success"]):
+            bad.append(f"fused B={B}: successes {rec['success']}")
+        out["fused"][B] = rec
+        log(f"batch: fused window B={B}", json.dumps(rec, default=str),
+            f"({card})")
+
+    if on_card:
+        for key in ("sizes", "fused"):
+            ops = [out[key][B].get("device_ops") for B in (min(sizes), nmax)]
+            out[f"{key}_launch_ratio"] = (ops[1] / ops[0] if all(ops)
+                                          else None)
+            if not (out[f"{key}_launch_ratio"] or 2.0) <= BATCH_LAUNCH_RATIO:
+                bad.append(f"{key}: device operations {ops} at B = "
+                           f"{min(sizes)}, {nmax}")
+
+    # The bench twin at SARA_BENCH_BATCH = bench_batch.
+    saved = (tb.BATCH, tb.ITERS, tb.load_pair)
+    tb.BATCH, tb.ITERS = bench_batch, 5
+    if tuple(hw) != FRAME_HW:
+        full_pair = tb.load_pair
+        tb.load_pair = lambda: full_pair(*hw)
+    last = {}
+    ps.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            line = tb.main(["--device", str(device)], record=last)
+    finally:
+        tb.BATCH, tb.ITERS, tb.load_pair = saved
+    k1_total += ps.counts()["K1"]
+    out["bench"] = {"s": time.perf_counter() - t0, "line": line,
+                    "bench_ours": last}
+    log(f"batch: torch_bench at SARA_BENCH_BATCH={bench_batch}",
+        json.dumps(out["bench"], default=str), f"({card})")
+    value = line.get("value")
+    if not (isinstance(value, float) and math.isfinite(value) and value > 0):
+        bad.append(f"bench: the line {line}")
+    first = np.asarray(last["first_counts"], float)
+    if (any(c != last["first_counts"] for c in last["pipelined_counts"])
+            or np.abs(first - last["matches"]).max()
+            > 0.01 * last["matches"] or len(first) != bench_batch):
+        bad.append(f"bench: counts {last['first_counts']}, "
+                   f"{last['pipelined_counts']}, {last['matches']}")
+    if any(last["sampler_launches"].values()):
+        bad.append(f"bench: throughput path launched "
+                   f"{last['sampler_launches']}")
+    out["k1_launches"] = k1_total
+    check(not bad, "batch: " + "; ".join(bad))
     return out
 
 
@@ -3682,6 +3992,7 @@ def main() -> int:
     tools = timed("tools", phase_tools, ps, card)
     bench = timed("bench", phase_bench, ps, card)
     probes = timed("probes", phase_probes, ps, card)
+    batch = timed("batch", phase_batch, ps, card)
     import torch.distributed as dist
 
     dist.destroy_process_group()
@@ -3719,7 +4030,7 @@ def main() -> int:
               + loop["sampler_counts"]["K1"] + lp_launches
               + tools["sampler_counts"]["K1"]
               + bench["sampler_counts"]["K1"]
-              + probes["sampler_counts"]["K1"],
+              + probes["sampler_counts"]["K1"] + batch["k1_launches"],
               lp_err, "frame: the 6 launches of one 480x640 frame, summed",
               launches_by_path={"frames": launches,
                                 "pack_x": k1_on_k2_path,
@@ -3732,7 +4043,8 @@ def main() -> int:
                                 "demos": demos["sampler_counts"]["K1"],
                                 "tools": tools["sampler_counts"]["K1"],
                                 "bench": bench["sampler_counts"]["K1"],
-                                "probes": probes["sampler_counts"]["K1"]}),
+                                "probes": probes["sampler_counts"]["K1"],
+                                "batch": batch["k1_launches"]}),
         entry("patch_sampler_packed", "K2",
               "sara_tpu/ops/patch_sampler.py:236", rows_k2, k2_launches,
               k2_path_err,

@@ -2,7 +2,9 @@
 
 Twin of ``sara_tpu/core/types.py``: NamedTuples of tensors with a leading
 capacity dimension and a boolean validity ``mask``; the actual count is
-``mask.sum()``.
+``mask.sum()``. A batch of sets (the frames of a window) carries a frame
+axis before the slot axis: ``capacity`` reads the slot axis and ``count()``
+counts per set.
 """
 
 from __future__ import annotations
@@ -35,10 +37,12 @@ class Keypoints(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.xy.shape[0]
+        """Slots per set (the slot axis of ``xy``, (..., N, 2))."""
+        return self.xy.shape[-2]
 
     def count(self) -> torch.Tensor:
-        return self.mask.sum()
+        """Valid keypoints per set: a scalar, or (B,) for a batch."""
+        return self.mask.sum(dim=-1)
 
     @staticmethod
     def empty(capacity: int, descriptor_dim: int = 128,
@@ -73,10 +77,12 @@ class Matches(NamedTuple):
 
     @property
     def capacity(self) -> int:
-        return self.i.shape[0]
+        """Slots per set (the last axis of ``i``)."""
+        return self.i.shape[-1]
 
     def count(self) -> torch.Tensor:
-        return self.mask.sum()
+        """Valid matches per set: a scalar, or (B,) for a batch."""
+        return self.mask.sum(dim=-1)
 
     @staticmethod
     def empty(capacity: int,

@@ -6,6 +6,10 @@ magnitude maps evaluated there, so per scale the module builds dense
 (36, H, W) binned maps, blurs them with sigma_w = 1.5 sigma_s (the
 reference's CPU branch: one replicate-padded separable convolution per
 scale), and each keypoint reads its 36-vector with bilinear taps.
+Leading dims before the scale axis are frames (a batch): each scale's blur
+is one convolution over every frame's 36 planes (36 planes or 36·B, the
+CPU's oneDNN rounds each alike), and the keypoints of frame b read the
+frame-folded maps.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import math
 import numpy as np
 import torch
 
+from sara_tpu_torch.features.dog import _frame_base
 from sara_tpu_torch.image.filtering import separable_conv2d
 
 NUM_BINS = 36
@@ -35,8 +40,9 @@ def _binned_magnitude(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 def orientation_maps(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
                      sigmas, radius_factor: float = 1.5,
                      compute_dtype=None, downsample: int = 1) -> torch.Tensor:
-    """Dense Gaussian-blurred 36-bin magnitude maps, (S, Hc, Wc, 36),
-    contiguous, in ``compute_dtype`` (default: the gradients' dtype).
+    """Dense Gaussian-blurred 36-bin magnitude maps of (..., S, H, W)
+    gradient stacks, (..., S, Hc, Wc, 36), contiguous, in ``compute_dtype``
+    (default: the gradients' dtype).
 
     The blur sigma_w = radius_factor * sigma_s per scale equals both the
     orientation-histogram window and the descriptor's spatial-bin
@@ -45,8 +51,8 @@ def orientation_maps(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
     blur passes are bfloat16, as in the reference's CPU branch with the
     same argument.
     """
-    S, H, W = gx_stack.shape
-    dense = _binned_magnitude(gx_stack, gy_stack)          # (S, 36, H, W)
+    S = gx_stack.shape[-3]
+    dense = _binned_magnitude(gx_stack, gy_stack)     # (..., S, 36, H, W)
     if compute_dtype is not None:
         dense = dense.to(compute_dtype)
 
@@ -58,31 +64,36 @@ def orientation_maps(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
         sw = sig_eff[si]
         xs = np.arange(-radii[si], radii[si] + 1, dtype=np.float64)
         taps = np.exp(-(xs * xs) / (2.0 * sw * sw))    # unnormalized
-        per_scale.append(separable_conv2d(dense[si], taps, taps))
-    maps = torch.stack(per_scale, dim=0)[:, :, ::stride, ::stride]
-    return maps.permute(0, 2, 3, 1).contiguous()          # (S, Hc, Wc, 36)
+        per_scale.append(separable_conv2d(dense[..., si, :, :, :], taps,
+                                          taps))
+    maps = torch.stack(per_scale, dim=-4)[..., ::stride, ::stride]
+    return maps.movedim(-3, -1).contiguous()        # (..., S, Hc, Wc, 36)
 
 
 def sample_orientation_maps(maps: torch.Tensor, x, y, s,
                             downsample: int = 1,
                             bilinear: bool = True) -> torch.Tensor:
-    """Read each keypoint's 36-vector from the dense maps, (K, 36) f32.
+    """Read each keypoint's 36-vector from the dense maps (..., S, Hc, Wc,
+    Cm): x, y, s (..., K) give (..., K, 36) f32.
 
-    The scale index folds into one flat row gather; ``bilinear=False``
-    reads one nearest row per keypoint instead of four.
+    The frame and scale indices fold into one flat row gather;
+    ``bilinear=False`` reads one nearest row per keypoint instead of four.
     """
-    S, Hc, Wc, Cm = maps.shape          # Cm may be padded (>= 36)
+    lead = maps.shape[:-4]
+    S, Hc, Wc, Cm = maps.shape[-4:]     # Cm may be padded (>= 36)
     s_idx = torch.clamp(torch.round(s).long(), 0, S - 1)
     if downsample > 1:
         x = x / downsample
         y = y / downsample
     xc = x.clamp(0.0, Wc - 1.0)
     yc = y.clamp(0.0, Hc - 1.0)
-    flat = maps.reshape(S * Hc * Wc, Cm)
-    base = s_idx * (Hc * Wc)
+    flat = maps.reshape(-1, Cm)
+    base = (_frame_base(lead, S, maps.device) + s_idx) * (Hc * Wc)
 
     def take(yy, xx):
-        return flat.index_select(0, base + yy * Wc + xx).float()[:, :NUM_BINS]
+        lin = base + yy * Wc + xx
+        return flat.index_select(0, lin.reshape(-1)).reshape(
+            lin.shape + (Cm,)).float()[..., :NUM_BINS]
 
     if not bilinear:
         return take(torch.round(yc).long(), torch.round(xc).long())
@@ -91,8 +102,8 @@ def sample_orientation_maps(maps: torch.Tensor, x, y, s,
     y0 = torch.floor(yc).long()
     x1 = torch.clamp(x0 + 1, max=Wc - 1)
     y1 = torch.clamp(y0 + 1, max=Hc - 1)
-    fx = (xc - x0)[:, None].float()
-    fy = (yc - y0)[:, None].float()
+    fx = (xc - x0)[..., None].float()
+    fy = (yc - y0)[..., None].float()
     return (take(y0, x0) * (1 - fx) * (1 - fy)
             + take(y0, x1) * fx * (1 - fy)
             + take(y1, x0) * (1 - fx) * fy

@@ -4,7 +4,9 @@ Twin of ``sara_tpu/features/sift.py``: the exact-grid descriptor
 (:func:`sift_descriptors`, bilinear samples of the gradient components on a
 fixed 16x16 grid in the keypoint frame), the field descriptor sampled from
 the shared 36-channel orientation maps (:func:`sift_descriptors_field`), and
-RootSIFT.
+RootSIFT. Leading dims before the scale axis are frames (a batch): frame b's
+scale s is slice ``b·S + s`` of the frame-folded field, so one gather (or
+one launch of the patch sampler) reads every frame's keypoints.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from sara_tpu_torch.features.dog import _frame_base
 from sara_tpu_torch.features.orientation import NUM_BINS
 from sara_tpu_torch.ops import patch_sampler
 from sara_tpu_torch.utils.host import put
@@ -59,25 +62,31 @@ def sift_descriptors(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
     """128-D SIFT descriptors of K keypoints in one octave, exact grid.
 
     Args:
-      gx_stack, gy_stack: (S, H, W) gradient component stacks.
-      x, y: (K,) positions (octave pixel coords).
-      s: (K,) continuous scale index.
-      theta: (K,) keypoint orientation (radians).
+      gx_stack, gy_stack: (..., S, H, W) gradient component stacks.
+      x, y: (..., K) positions (octave pixel coords).
+      s: (..., K) continuous scale index.
+      theta: (..., K) keypoint orientation (radians).
       sigmas: per-scale sigmas (tuple of floats).
       bilinear: bilinear or nearest samples of the gradient maps.
       compute_dtype: storage dtype of the sampled gradient maps (bfloat16
         halves the gathered bytes); the binning stays float32.
 
-    Returns (K, 128) float32, L2-normalized with 0.2 clamping.
+    Returns (..., K, 128) float32, L2-normalized with 0.2 clamping.
     """
-    S, H, W = gx_stack.shape
+    lead = gx_stack.shape[:-3]
+    S, H, W = gx_stack.shape[-3:]
     if compute_dtype is not None:
         gx_stack = gx_stack.to(compute_dtype)
         gy_stack = gy_stack.to(compute_dtype)
     dev = gx_stack.device
+    kshape = x.shape
     s_idx = torch.clamp(torch.round(s).long(), 0, S - 1)
     sig_table = put(np.asarray(sigmas, np.float32), dev)
-    l = BIN_SCALE_UNIT * sig_table[s_idx]
+    l = BIN_SCALE_UNIT * sig_table[s_idx].reshape(-1)
+    # The keypoints of every frame in one flat axis, each reading its
+    # frame's slice of the frame-folded stacks.
+    s_fold = (_frame_base(lead, S, dev) + s_idx).reshape(-1)
+    x, y, theta = (a.reshape(-1) for a in (x, y, theta))
 
     # Sample positions in the canonical keypoint frame.
     i = torch.arange(T, dtype=torch.float32, device=dev)
@@ -89,8 +98,9 @@ def sift_descriptors(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
     xs = x[:, None, None] + dx  # (K, T, T)
     ys = y[:, None, None] + dy
 
-    maps = torch.stack([gx_stack, gy_stack], dim=-1)  # (S, H, W, 2)
-    si3 = s_idx[:, None, None]
+    maps = torch.stack([gx_stack, gy_stack], dim=-1).reshape(
+        -1, H, W, 2)                                    # (B·S, H, W, 2)
+    si3 = s_fold[:, None, None]
     inside = (xs >= 0) & (xs <= W - 1) & (ys >= 0) & (ys <= H - 1)
     xc = xs.clamp(0.0, W - 1.0)
     yc = ys.clamp(0.0, H - 1.0)
@@ -127,7 +137,8 @@ def sift_descriptors(gx_stack: torch.Tensor, gy_stack: torch.Tensor,
 
     Wrow = _spatial_weights(dev)  # (T, 4)
     desc = torch.einsum("ir,jc,kij,kijb->krcb", Wrow, Wrow, w, ori_w)
-    return _normalize(desc.reshape(desc.shape[0], -1))
+    return _normalize(desc.reshape(desc.shape[0], -1)).reshape(
+        kshape + (N_SPATIAL * N_SPATIAL * N_ORI,))
 
 
 def root_sift(desc: torch.Tensor) -> torch.Tensor:
@@ -148,28 +159,38 @@ def sift_descriptors_field(maps: torch.Tensor, x, y, s, theta, sigmas,
     circular triangle weights.
 
     Args:
-      maps: (S, Hc, Wc, >=36) from orientation_maps().
-      x, y, s, theta: (K,) keypoint geometry (octave pixel coords).
+      maps: (..., S, Hc, Wc, >=36) from orientation_maps(); leading dims
+        are frames, folded into one (B·S, Hc, Wc, >=36) field.
+      x, y, s, theta: (..., K) keypoint geometry (octave pixel coords).
       sigmas: per-scale sigmas (tuple).
       downsample: the maps' stride (must match orientation_maps).
       bilinear: bilinear or nearest samples on the "gather" path.
       sampler: "gather" = row gathers in PyTorch; "kernel" = the patch
         sampler of ops/patch_sampler.py (the CUDA kernel on a CUDA tensor),
-        which samples bilinear; "auto" = "kernel" on a CUDA tensor,
+        which samples bilinear, one launch for every frame's keypoints
+        on the folded field; "auto" = "kernel" on a CUDA tensor,
         "gather" otherwise. Like the JAX twin's "pallas" sampler, "kernel"
         with ``bilinear=False`` takes nearest gathers where the twin's
         window does not fit (``patch_sampler.tpu_window_fits``); with
         ``bilinear=True`` both paths compute the same function, so every
         geometry goes through the kernel.
 
-    Returns (K, 128) float32, L2-normalized with 0.2 clamping.
+    Returns (..., K, 128) float32, L2-normalized with 0.2 clamping.
     """
-    S, Hc, Wc, Cm = maps.shape
+    lead = maps.shape[:-4]
+    S, Hc, Wc, Cm = maps.shape[-4:]
     dev = maps.device
-    K = x.shape[0]
+    kshape = x.shape
     s_idx = torch.clamp(torch.round(s).long(), 0, S - 1)
     sig_table = put(np.asarray(sigmas, np.float32), dev)
-    l = BIN_SCALE_UNIT * sig_table[s_idx]                 # (K,)
+    l = BIN_SCALE_UNIT * sig_table[s_idx].reshape(-1)     # (K,)
+    # Frames fold into the scale axis: frame b's scale s is slice b·S + s
+    # of the (B·S, Hc, Wc, Cm) field, and the keypoints of every frame lie
+    # on one flat axis of K = B·K' rows.
+    s_idx = (_frame_base(lead, S, dev) + s_idx).reshape(-1)
+    maps = maps.reshape((-1, Hc, Wc, Cm))
+    x, y, theta = (a.reshape(-1) for a in (x, y, theta))
+    K = x.shape[0]
 
     # Rotated 4x4 bin-centre grid in image coords.
     u = (torch.arange(N_SPATIAL, dtype=torch.float32, device=dev)
@@ -198,7 +219,7 @@ def sift_descriptors_field(maps: torch.Tensor, x, y, s, theta, sigmas,
     elif sampler == "gather":
         xc = xs.clamp(0.0, Wc - 1.0)
         yc = ys.clamp(0.0, Hc - 1.0)
-        flat = maps.reshape(S * Hc * Wc, Cm)
+        flat = maps.reshape(-1, Cm)
         base = s_idx[:, None] * (Hc * Wc)
 
         def take(yy, xx):
@@ -235,4 +256,5 @@ def sift_descriptors_field(maps: torch.Tensor, x, y, s, theta, sigmas,
     # Global Gaussian window over the patch, sigma = N/2 bin units.
     g = torch.exp(-(uu ** 2 + vv ** 2) / (2.0 * (N_SPATIAL / 2.0) ** 2))
     desc = torch.einsum("knf,kfo->kno", Fs, wfo) * g.reshape(1, -1, 1)
-    return _normalize(desc.reshape(K, N_SPATIAL * N_SPATIAL * N_ORI))
+    return _normalize(desc.reshape(K, N_SPATIAL * N_SPATIAL * N_ORI)
+                      ).reshape(kshape + (N_SPATIAL * N_SPATIAL * N_ORI,))

@@ -2,13 +2,18 @@
 
 Twin of ``sara_tpu/image/filtering.py``, on the reference's CPU branch:
 replicate-pad, then two 1-D ``F.conv2d`` passes (rows, then columns), in
-float32 on the CPU and on the card alike. The reference's TPU branch (blurs
-as banded-Toeplitz matmuls) was a TPU workaround and is not carried over;
-``band_matrix`` is kept because the port's tests and later slices use it.
+float32 on the CPU and on the card alike; every leading plane of a stack is
+one image of the same call. Under :func:`planewise` the CPU rounds each
+plane as alone, so a stack of frames blurs exactly as its frames one by one.
+The reference's TPU branch (blurs as banded-Toeplitz matmuls) was a TPU
+workaround and is not carried over; ``band_matrix`` is kept because the
+port's tests and later slices use it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import numpy as np
@@ -55,6 +60,42 @@ def _taps(k, like: torch.Tensor) -> torch.Tensor:
     return k.to(dtype=like.dtype, device=like.device)
 
 
+# On the CPU, PyTorch convolves ONE plane of at most this many values on
+# its im2col + GEMM path and a larger plane, or a batch of planes, on
+# oneDNN (torch 2.13's heuristic); the two round differently, while oneDNN
+# rounds a plane alike whatever the batch.
+_ONE_PLANE_IM2COL = 20480
+_PLANEWISE = contextvars.ContextVar("planewise", default=False)
+
+
+@contextlib.contextmanager
+def planewise():
+    """Within the block, every plane of a CPU separable convolution rounds
+    as it does convolved alone: a batch of small planes takes the im2col
+    path that one such plane takes. So frame b of a (B, H, W) stack blurs
+    bit for bit as the frame alone (the Gaussian pyramid runs so). The
+    card's cuDNN is left to choose."""
+    token = _PLANEWISE.set(True)
+    try:
+        yield
+    finally:
+        _PLANEWISE.reset(token)
+
+
+def _conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``F.conv2d`` of (N, 1, H, W) planes; under :func:`planewise`, on
+    the CPU, each plane rounded as alone."""
+    if (_PLANEWISE.get() and x.is_cpu and x.shape[0] > 1
+            and x[0].numel() <= _ONE_PLANE_IM2COL):
+        was = torch.backends.mkldnn.enabled
+        torch.backends.mkldnn.enabled = False
+        try:
+            return F.conv2d(x, w)
+        finally:
+            torch.backends.mkldnn.enabled = was
+    return F.conv2d(x, w)
+
+
 def separable_conv2d(image: torch.Tensor, kx, ky) -> torch.Tensor:
     """Convolve rows with ``kx`` then columns with ``ky``; replicate borders.
 
@@ -69,8 +110,8 @@ def separable_conv2d(image: torch.Tensor, kx, ky) -> torch.Tensor:
     rx = kx.shape[0] // 2
     ry = ky.shape[0] // 2
     x = F.pad(x, (rx, rx, ry, ry), mode="replicate")
-    x = F.conv2d(x, kx.flip(0).reshape(1, 1, 1, -1))
-    x = F.conv2d(x, ky.flip(0).reshape(1, 1, -1, 1))
+    x = _conv2d(x, kx.flip(0).reshape(1, 1, 1, -1))
+    x = _conv2d(x, ky.flip(0).reshape(1, 1, -1, 1))
     return x.reshape(shape)
 
 

@@ -55,9 +55,13 @@ def downscale2(image: torch.Tensor) -> torch.Tensor:
 
 
 def upscale2(image: torch.Tensor) -> torch.Tensor:
-    """Bilinear x2 upsample (the first_octave = -1 enlargement)."""
-    H, W = image.shape[0], image.shape[1]
-    return resize_bilinear(image, 2 * H, 2 * W)
+    """Bilinear x2 upsample (the first_octave = -1 enlargement) of a
+    (..., H, W) stack: one interpolation over all the planes, each computed
+    as :func:`resize_bilinear` computes a (H, W) image."""
+    H, W = image.shape[-2], image.shape[-1]
+    x = F.interpolate(image.reshape((-1, 1, H, W)), size=(2 * H, 2 * W),
+                      mode="bilinear", align_corners=False)
+    return x.reshape(image.shape[:-2] + (2 * H, 2 * W))
 
 
 def warp_bilinear(image: torch.Tensor, map_x: torch.Tensor,

@@ -234,17 +234,26 @@ def _sample_on_card(maps: torch.Tensor, s_idx: torch.Tensor,
     if not (maps.is_contiguous() and ys.is_contiguous()
             and xs.is_contiguous()):
         raise ValueError("maps, ys and xs must be contiguous")
-    S, H, W, C = maps.shape
-    # 32-bit sample and pixel indices; the general variant's grid of
-    # 256-thread blocks over K * N * C stays below 2^31 blocks.
-    if ys.numel() >= 2 ** 31 or S * H * W >= 2 ** 31 or (
-            ys.numel() * C >= 2 ** 39):
-        raise ValueError("K * N or S * H * W too large for one launch")
+    check_launch_size(maps.shape, *ys.shape)
     if s_idx.dtype not in _INDEX_SUFFIX or not s_idx.is_contiguous():
         s_idx = s_idx.to(torch.int32).contiguous()
         INDEX_COPIES += 1
     return _launch(maps, s_idx, ys, xs, packed=packed,
                    vector=vector_layout_ok(maps))
+
+
+def check_launch_size(shape, K: int, N: int) -> None:
+    """Raise where a launch on (S, H, W, C) maps with K x N samples would
+    overflow the kernels' 32-bit indices: their sample index k * N + n and
+    pixel index (s * H + y) * W + x are ``int`` (the element offset, times
+    C, is 64-bit), and the general variant's grid of 256-thread blocks over
+    K * N * C stays below 2^31 blocks. A frame-folded field counts all its
+    B * S slices."""
+    S, H, W, C = shape
+    if K * N >= 2 ** 31 or S * H * W >= 2 ** 31 or K * N * C >= 2 ** 39:
+        raise ValueError(
+            f"K * N = {K * N} samples or S * H * W = {S * H * W} pixels of "
+            f"the field reach 2^31: too large for one launch")
 
 
 def launch_floor() -> None:
@@ -266,10 +275,13 @@ def sample_field_patches(maps: torch.Tensor, s_idx: torch.Tensor,
 
     Returns (K, N, C) float32 for every geometry: there is no fit rule and
     no ``None``. A CUDA tensor goes through a kernel, or the call raises;
-    a CPU tensor goes through that kernel's plain version.
+    a CPU tensor goes through that kernel's plain version. On the card,
+    sizes the kernels' 32-bit indices cannot address raise
+    (:func:`check_launch_size`).
 
     Args:
-      maps: (S, H, W, C) float32 or bfloat16 field, contiguous.
+      maps: (S, H, W, C) float32 or bfloat16 field, contiguous; a batch's
+        frames come folded into S (frame b's scale s at slice b * S' + s).
       s_idx: (K,) integer scale-slice index per keypoint (clamped to S - 1);
         int32 and int64 are read in place.
       ys, xs: (K, N) float32 sample positions in map pixels, contiguous.

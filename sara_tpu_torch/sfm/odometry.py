@@ -11,12 +11,15 @@ OdometryPipeline.cpp:29-423):
 Detection, matching, RANSAC, triangulation and BA run on the pipeline's
 device with fixed-capacity tensors; the pose graph, tracks and map live on
 the host (NumPy + the native union-find). The reference fuses each
-frame's undistort + detect + match + E-RANSAC (and a window of frames) into
-one jitted program; here they are the same entry points called in
-sequence, with the window and chain-break semantics of
-:meth:`OdometryPipeline.process_frames` kept as they are. Every estimator
-draws from one ``torch.Generator`` on the device, seeded 0. Each stage
-brings its results to the host in ONE packed transfer
+frame's undistort + detect + match + E-RANSAC into one jitted program, and
+a window of frames into one vmapped program; here a frame runs the same
+entry points in sequence, and a window of
+:meth:`OdometryPipeline.process_frames` runs :func:`_fused_frontend_batch`:
+the window's frames through one batched detection, one batched matching and
+one E-RANSAC with a leading pair axis, so its launches do not grow with
+the window. The window and chain-break semantics are the reference's.
+Every estimator draws from one ``torch.Generator`` on the device, seeded 0.
+Each stage brings its results to the host in ONE packed transfer
 (``utils/host.py::fetch``).
 
 Failure handling mirrors the reference: < min inliers for the relative pose
@@ -34,12 +37,14 @@ import torch
 
 from sara_tpu_torch import resolve_device
 from sara_tpu_torch.ba import BAOptions, BAProblem, bundle_adjust
-from sara_tpu_torch.core.types import Keypoints
-from sara_tpu_torch.features.api import SIFTParams, compute_sift_keypoints
+from sara_tpu_torch.core.types import Keypoints, Matches
+from sara_tpu_torch.features.api import (SIFTParams, _compute_sift_batch,
+                                         compute_sift_keypoints)
 from sara_tpu_torch.features.dog import DoGParams
 from sara_tpu_torch.image import gray_from_any, warp_bilinear
 from sara_tpu_torch.image.pyramid import PyramidParams
-from sara_tpu_torch.matching.brute_force import MatchParams, match_descriptors
+from sara_tpu_torch.matching.brute_force import (MatchParams, _match_sets,
+                                                 match_descriptors)
 from sara_tpu_torch.mvg.two_view import triangulate_linear
 from sara_tpu_torch.ransac.estimators import (estimate_absolute_pose,
                                               estimate_relative_pose)
@@ -89,6 +94,53 @@ class OdometryConfig:
     # growing cloud + trajectory every k accepted frames. "" disables.
     live_viewer_path: str = ""
     live_viewer_every: int = 5
+
+
+def _fused_frontend_batch(imgs, umap, vmap_, prev_kp, generator, K,
+                          sift_params, ratio, threshold_px, num_samples,
+                          min_inliers, undistort, n_real=None):
+    """Multi-frame frontend: B frames of undistort + detect + match +
+    E-RANSAC as one batched pass, the twin of the reference's
+    ``_fused_frontend_batch`` (its ``jax.vmap`` of detection, then of the
+    pair stage).
+
+    ``imgs`` (B, H, W) on the device; ``umap``, ``vmap_`` the undistortion
+    maps (read where ``undistort``); ``prev_kp`` the keypoints frame 0 is
+    matched against; ``generator`` the one random source of every pair's
+    hypotheses (one draw for the window, as global SfM's pair stage
+    draws). Frame k pairs with frame k - 1: one detection of the window
+    (:func:`_compute_sift_batch`), one ``_match_sets`` over the pair axis,
+    one ``estimate_relative_pose`` with a leading pair axis over the first
+    ``n_real`` pairs (None: all B). A padded frame's pair takes no
+    E-RANSAC: nothing reads its pose, and its draws would move the
+    generator's stream, which the reference's per-frame keys keep apart;
+    so on the CPU a window draws exactly the samples the per-frame path
+    draws for its frames. Returns (kps, ms, res, R, t), the window's axis
+    first (res, R, t over the ``n_real`` pairs)."""
+    if undistort:
+        # The frames are the channels of one warp: the same map for all.
+        imgs = warp_bilinear(imgs.permute(1, 2, 0), umap, vmap_).permute(
+            2, 0, 1)
+    kps = _compute_sift_batch(imgs, sift_params, device=imgs.device)
+    left = Keypoints(*(torch.cat([p[None].to(f.device), f[:-1]], dim=0)
+                       for p, f in zip(prev_kp, kps)))
+    j, ok, d1 = _match_sets(left.descriptors, left.mask, kps.descriptors,
+                            kps.mask, ratio)
+    rows = torch.arange(left.capacity, device=j.device).expand_as(j)
+    ms = Matches(i=rows.to(torch.int32), j=j.to(torch.int32), score=d1,
+                 mask=ok)
+    v = torch.gather(kps.xy, 1, j[..., None].expand(-1, -1, 2))
+    n = kps.xy.shape[0] if n_real is None else n_real
+    res, R, t = estimate_relative_pose(
+        generator, left.xy[:n], v[:n], ok[:n], K, K,
+        threshold_px=threshold_px, num_samples=num_samples,
+        min_inliers=min_inliers)
+    return kps, ms, res, R, t
+
+
+def _frame(batch, k: int):
+    """Frame ``k`` of a NamedTuple of batched tensors."""
+    return type(batch)(*(f[k] for f in batch))
 
 
 def _bucket(n: int, lo: int = 256) -> int:
@@ -239,19 +291,24 @@ class OdometryPipeline:
                   else self.cfg.rel_pose_samples)
 
         def dispatch(i, prev_kp):
-            """One window's frontend; frame k pairs with frame k - 1 and
-            the first with ``prev_kp``."""
+            """One window's frontend, one batched pass; frame k pairs with
+            frame k - 1 and the first with ``prev_kp``. A short window is
+            padded to B with its last frame, as the reference pads."""
             chunk = [_host_image(gray_from_any(im))
                      for im in images[i:i + B]]
-            kps, ms, ress, Rs, ts = [], [], [], [], []
-            left = prev_kp
-            for im in chunk:
-                kp, m, res, R, t = self._frontend(im, left, n_full)
-                for lst, x in zip((kps, ms, ress, Rs, ts), (kp, m, res, R, t)):
-                    lst.append(x)
-                left = kp
-            return dict(i=i, n=len(chunk), chunk=chunk, kps=kps, ms=ms,
-                        ress=ress, Rs=Rs, ts=ts, last_kp=kps[-1])
+            n = len(chunk)
+            imgs = put(np.stack(chunk + [chunk[-1]] * (B - n)), self.device)
+            undistort = self.maps is not None
+            umap, vmap_ = self.maps if undistort else (None, None)
+            kps, ms, ress, Rs, ts = _fused_frontend_batch(
+                imgs, umap, vmap_, prev_kp, self._gen, self._K,
+                self.cfg.sift, self.cfg.match_ratio,
+                self.cfg.rel_pose_threshold_px, n_full,
+                self.cfg.rel_pose_min_inliers, undistort, n_real=n)
+            # The window's last real detection: the matching target of the
+            # next window.
+            return dict(i=i, n=n, chunk=chunk, kps=kps, ms=ms, ress=ress,
+                        Rs=Rs, ts=ts, last_kp=_frame(kps, n - 1))
 
         def integrate(p):
             """Host integration of one window, falling back per frame once
@@ -260,9 +317,10 @@ class OdometryPipeline:
             for k in range(p["n"]):
                 self._pending_image = p["chunk"][k]
                 fi = frame_indices[p["i"] + k]
+                kp = _frame(p["kps"], k)
                 if chain_ok:
-                    ok = self._integrate(p["kps"][k], p["ms"][k],
-                                         p["ress"][k], p["Rs"][k],
+                    ok = self._integrate(kp, _frame(p["ms"], k),
+                                         _frame(p["ress"], k), p["Rs"][k],
                                          p["ts"][k], fi)
                     if not ok:
                         chain_ok = False
@@ -271,7 +329,7 @@ class OdometryPipeline:
                     # this frame becomes the last accepted one, so the
                     # next frame's result (matched against this frame's
                     # detection) is valid again.
-                    ok = self.process_keypoints(p["kps"][k], fi)
+                    ok = self.process_keypoints(kp, fi)
                     chain_ok = bool(ok)
                 out.append(ok)
 

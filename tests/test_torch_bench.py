@@ -183,3 +183,41 @@ def test_roofline_keys_are_the_estimate_over_the_time(twin_run):
         mp.setattr(tb, "TOTAL_CAP", CAP)
         fast = tb.roofline(5000.0, *HW)
     assert fast["roofline_frac"] == round(roof_s * 5000.0, 4) > 0.01
+
+
+def test_batch_of_two_is_one_batched_pass_with_batch_one_counts(twin_run,
+                                                               monkeypatch):
+    """``SARA_BENCH_BATCH`` = 2: each batch is one batched pass
+    (``_compute_sift_batch`` once per side, one ``_match_sets`` over the
+    pair axis, the per-pair entry points never called), and each pair's
+    match count equals batch 1's on the same pair (the batch's two pairs
+    differ only by bench.py's 1e-4 noise, within 1%)."""
+    import sara_tpu_torch.features.api as api
+
+    calls = []
+    batch = api._compute_sift_batch
+
+    def counted(images, *args, **kwargs):
+        calls.append(tuple(images.shape))
+        return batch(images, *args, **kwargs)
+
+    record = {}
+    a, b = tb.load_pair(*HW)
+    with small(monkeypatch):
+        monkeypatch.setattr(tb, "BATCH", 2)
+        monkeypatch.setattr(api, "_compute_sift_batch", counted)
+        tb.bench_ours(a, b, device="cpu", record=record)
+    one = twin_run[2]
+    assert record["batch"] == 2 and one["batch"] == 1
+    # The warm-up pair goes through compute_sift_keypoints (its B = 1
+    # case), then two batched passes per batch: the first and one timed.
+    assert calls.count((1,) + HW) == 2
+    assert calls.count((2,) + HW) == 4
+    assert record["keypoints"] == one["keypoints"]
+    assert record["matches"] == one["matches"]
+    assert len(record["first_counts"]) == 2
+    assert record["pipelined_counts"] == [record["first_counts"]]
+    for count in record["first_counts"]:
+        assert abs(count - one["first_counts"]) <= COUNT_REL * one[
+            "first_counts"]
+    assert not any(record["sampler_launches"].values())

@@ -2,8 +2,8 @@
 Slice C's bundle adjustment and odometry core, of Slice D's pose-graph
 optimizer, rotation averaging, checkpoints and global SfM, of Slice E's
 chessboard device program, calibration LM and Hough lines, of the E3
-modules and the demo twins, and of the bench twin's counts on the card
-(marker ``cuda``).
+modules and the demo twins, of the bench twin's counts and of the batched
+frontend (K1 on the frame-folded field) on the card (marker ``cuda``).
 
 They skip without a CUDA device. This file imports nothing of JAX, so on a
 GPU machine without JAX it runs without the suite's conftest:
@@ -855,3 +855,68 @@ def test_bench_twin_counts_on_card_match_cpu(cuda, monkeypatch):
                        [cpu["matches"]] + cpu["pipelined_counts"])):
         np.testing.assert_allclose(got, want, rtol=0.01)
     assert cpu["matches"] > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_folded_field_equals_per_frame_on_card(cuda, dtype):
+    """K1 on a batch's frame-folded (B·S, H, W, C) field with ``s_idx +
+    b·S``: one launch whose rows equal each frame's own launch and the
+    plain version within 1e-6."""
+    rs = np.random.RandomState(11)
+    B, S, H, W, K = 4, 5, 120, 160, 257
+    maps = torch.from_numpy(rs.rand(B, S, H, W, 36).astype(np.float32)).to(
+        cuda, dtype)
+    s_idx = torch.from_numpy(rs.randint(0, S, (B, K))).to(cuda)
+    ys = torch.from_numpy(rs.uniform(-2, H + 1, (B, K, 16))
+                          .astype(np.float32)).to(cuda)
+    xs = torch.from_numpy(rs.uniform(-2, W + 1, (B, K, 16))
+                          .astype(np.float32)).to(cuda)
+    fold = (s_idx + S * torch.arange(B, device=cuda)[:, None]).reshape(-1)
+    args = (maps.reshape(B * S, H, W, 36), fold, ys.reshape(-1, 16),
+            xs.reshape(-1, 16))
+    before = ps.LAUNCHES
+    folded = ps.sample_field_patches(*args, max_sample_radius=20.0)
+    assert ps.LAUNCHES == before + 1
+    plain = ps._sample_patches_reference(*args)
+    assert (folded - plain).abs().max().item() <= 1e-6
+    for b in range(B):
+        one = ps.sample_field_patches(maps[b], s_idx[b], ys[b], xs[b],
+                                      max_sample_radius=20.0)
+        assert (folded[b * K:(b + 1) * K] - one).abs().max().item() <= 1e-6
+
+
+@pytest.mark.cuda
+def test_batch_frontend_on_card_against_per_frame(cuda):
+    """``_compute_sift_batch`` of three room frames at 240x320 with the
+    kernel sampler: one K1 launch per octave for the whole batch; each
+    frame's keypoints overlap (0.5 px, 1% in scale) >= 98% of the same
+    frame's ``compute_sift_keypoints`` on the card (cuDNN may round a
+    batch's blurs unlike one frame's) and of the batch on the CPU."""
+    import dataclasses
+
+    cs = _chip_smoke()
+    from sara_tpu_torch.features.api import (SIFTParams, _compute_sift_batch,
+                                             compute_sift_keypoints)
+    from sara_tpu_torch.image.pyramid import gaussian_pyramid
+
+    _, imgs, _ = cs.vo_frames(3, hw=(240, 320))
+    stack = np.stack(imgs).astype(np.float32)
+    params = dataclasses.replace(SIFTParams(), desc_sampler="kernel",
+                                 desc_sample_nearest=False)
+    before = ps.LAUNCHES
+    kb = _compute_sift_batch(stack, params, device=cuda)
+    n_oct = len(gaussian_pyramid(torch.zeros(240, 320),
+                                 params.pyramid).octaves)
+    assert ps.LAUNCHES == before + n_oct
+    cpu = _compute_sift_batch(stack, dataclasses.replace(
+        params, desc_sampler="gather"), device="cpu")
+    for b in range(3):
+        one = compute_sift_keypoints(stack[b], params, device=cuda)
+        for other in (one, type(one)(*(f[b] for f in cpu))):
+            m, mo = kb.mask[b].cpu(), other.mask.cpu()
+            assert cs.kp_overlap(kb.xy[b].cpu()[m], kb.scale[b].cpu()[m],
+                                 other.xy.cpu()[mo],
+                                 other.scale.cpu()[mo]) >= 0.98
+            assert abs(int(m.sum()) - int(mo.sum())) <= 0.02 * int(mo.sum())

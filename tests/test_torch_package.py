@@ -41,8 +41,6 @@ PROBES_QUEUED = {
     "probe_frontend_sweep.py": "queued: the frontend's capacity sweep",
     "probe_dense_ablate.py": "queued: dense-Schur ablations",
     "probe_dense_micro.py": "queued: dense-Schur micro-benchmarks",
-    "probe_ab_vo.py": "queued: an A/B of two VO configurations",
-    "probe_batch_parity.py": "queued: batched against single frontends",
     "probe_city_stages.py": "queued: config 5's stages",
     "probe_sfm_ate_stages.py": "queued: global SfM's ATE by stage",
     "probe_tracker_flat.py": "queued: the flat tracker",
@@ -294,7 +292,7 @@ def test_every_module_has_a_twin():
 def test_every_tool_has_a_twin():
     """Every command-line tool of scripts/ has a twin scripts/torch_<name>,
     or a reason in TOOLS_WITHOUT_TWIN; every probe_*.py has one too or
-    stands in PROBES_QUEUED with its reason (14 of the 23); bench.py's
+    stands in PROBES_QUEUED with its reason (12 of the 23); bench.py's
     twin is torch_bench.py at the root; every twin has its tool."""
     tools = sorted(p.name for p in (ROOT / "scripts").glob("*.py")
                    if not p.name.startswith("torch_"))
@@ -312,9 +310,9 @@ def test_every_tool_has_a_twin():
     assert (ROOT / "torch_bench.py").exists() and (ROOT / "bench.py").exists()
     probes = [t for t in tools if t.startswith("probe_")]
     assert len(probes) == 23
-    assert len(PROBES_QUEUED) == 14
+    assert len(PROBES_QUEUED) == 12
     assert sum((ROOT / "scripts" / f"torch_{t}").exists()
-               for t in probes) == 9
+               for t in probes) == 11
 
 
 @pytest.mark.parametrize("rel", PORTED)

@@ -9,7 +9,10 @@ are held to the port's pipeline and to the reference: the frontend's full
 prefixes to ``compute_sift_keypoints`` and ``_process_octave``, twin 4's
 kernel route to its bilinear gather, twin 9's segment sums to
 ``jax.ops.segment_sum``, twin 7's composed pieces to one dense-Schur
-iteration in float64.
+iteration in float64, and the two batch probes' twins to the JAX probes
+run at the same tiny size in subprocesses started with the twins' run
+(``tests/tool_twins.py``, the photographs replaced by ``make_room(seed=1)``
+as the twins replace them).
 """
 
 from __future__ import annotations
@@ -25,12 +28,19 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-if str(ROOT) not in sys.path:
-    sys.path.insert(0, str(ROOT))
+for _p in (ROOT, ROOT / "tests"):
+    if str(_p) not in sys.path:
+        sys.path.insert(0, str(_p))
 
 from chip_smoke import PROBE_RUNS, load_tool, stages_in_order  # noqa: E402
+from tool_twins import PROCEDURAL_ROOM, finish, start_reference  # noqa: E402
 
 HW = (64, 96)
+# The tiny sizes of the two batch probes, for the twin and the JAX probe
+# alike: at 180x240 the five frames are all accepted in both packages.
+BATCH_PARITY_ARGV = ["--frames", "3", "--width", "128", "--height", "96"]
+AB_VO_ARGV = ["--frames", "5", "--seeds", "1", "--width", "240", "--height",
+              "180"]
 # The tiny sizes: each twin's argv and the module constants patched.
 TINY = {
     "probe_sift_stages": ([], {"ITERS": 1}),
@@ -48,6 +58,8 @@ TINY = {
                            "900"], {"REPS": 1}),
     "probe_segsum": (["--obs", "2048", "--cams", "16", "--points", "300"],
                      {"REPS": 1}),
+    "probe_batch_parity": (BATCH_PARITY_ARGV, {}),
+    "probe_ab_vo": (AB_VO_ARGV, {}),
 }
 NAMES = [run[0] for run in PROBE_RUNS]
 FORBIDDEN = ("jax", "jaxlib", "sara_tpu", "bench")
@@ -87,9 +99,32 @@ def one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def printed():
+def jax_probes():
+    """The two JAX batch probes at the twins' tiny sizes, the photographs
+    replaced by ``make_room(seed=1)``: started together in subprocesses
+    before the twins run, each mostly JAX compiles; a test waits for its
+    probe's standard output. Killed at the module's end if still running."""
+    procs = {name: start_reference(name, argv, patch=PROCEDURAL_ROOM)
+             for name, argv in (("probe_batch_parity", BATCH_PARITY_ARGV),
+                                ("probe_ab_vo", AB_VO_ARGV))}
+    outs = {}
+
+    def output(name):
+        if name not in outs:
+            outs[name] = finish(procs[name])
+        return outs[name]
+
+    yield output
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+@pytest.fixture(scope="module")
+def printed(jax_probes):
     """Each twin's output at its tiny size, and the forbidden modules the
-    run imported, from one fresh interpreter."""
+    run imported, from one fresh interpreter (while the JAX probes run)."""
     code = RUNNER.format(root=str(ROOT), hw=HW, tiny=TINY,
                          forbidden=FORBIDDEN)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -247,3 +282,51 @@ def test_twin_without_a_card_raises(name):
     mod = torch_bench if name == "torch_bench" else load_tool(name)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mod.main([])
+
+
+def _json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def test_batch_parity_twin_against_jax_probe(printed, jax_probes):
+    """The twin of ``probe_batch_parity`` and the JAX probe on the same
+    three 96x128 frames: the same stages; on the CPU each package's
+    batched detection and matching equal its per-frame ones (every
+    keypoint within 0.05 px, no mask or index differing); keypoint and
+    match counts within 5% + 1 of the probe's; the same RANSAC successes,
+    and with the samples the twin hands both its calls (where the probe
+    shares its keys) the same inlier masks batched and single."""
+    ref = {r["probe"]: r for r in _json_lines(
+        jax_probes("probe_batch_parity"))}
+    twin = {r["probe"]: r for r in _json_lines(printed["probe_batch_parity"])}
+    assert list(twin) == list(ref) == ["setup", "detect", "match", "ransac"]
+    for side in (ref, twin):
+        assert all(f["frac_matched"] == 1.0
+                   for f in side["detect"]["per_frame"])
+        assert all(p["mask_diff"] == 0 and p["j_diff_on_common"] == 0
+                   for p in side["match"]["per_pair"])
+    for t, r in zip(twin["detect"]["per_frame"], ref["detect"]["per_frame"]):
+        assert abs(t["n_a"] - r["n_a"]) <= 0.05 * r["n_a"] + 1
+    for t, r in zip(twin["match"]["per_pair"], ref["match"]["per_pair"]):
+        assert abs(t["n_single"] - r["n_single"]) <= 0.05 * r["n_single"] + 1
+    for t, r in zip(twin["ransac"]["per_pair"], ref["ransac"]["per_pair"]):
+        assert t["single"]["ok"] == r["single"]["ok"]
+        assert t["batch"]["ok"] == r["batch"]["ok"] == t["single"]["ok"]
+        assert t["batch_vs_single"]["inlier_mask_diff"] == 0
+
+
+def test_ab_vo_twin_against_jax_probe(printed, jax_probes):
+    """The twin of ``probe_ab_vo`` and the JAX probe on the same five
+    180x240 frames, one seed: the same runs in the same order (per_frame,
+    batched, then the two summaries); both packages accept all five frames
+    in both modes, at an ATE within 0.05 of the probe's."""
+    ref = _json_lines(jax_probes("probe_ab_vo"))
+    twin = _json_lines(printed["probe_ab_vo"])
+    order = [(r.get("mode"), r.get("summary")) for r in ref]
+    assert [(r.get("mode"), r.get("summary")) for r in twin] == order == [
+        ("per_frame", None), ("batched", None), (None, "per_frame"),
+        (None, "batched")]
+    for t, r in zip(twin[:2], ref[:2]):
+        assert t["seed"] == r["seed"] == 0
+        assert t["accepted"] == r["accepted"] == 5
+        assert abs(t["ate"] - r["ate"]) <= 0.05

@@ -90,7 +90,8 @@ def test_eval_vo_pipelined_room():
     """``--pipelined``: the same room loop through ``process_frames`` with
     the closer on the ``on_accept`` hook, held by ``tool_failures``' gates
     (the reference's tool ends at ATE 0.0833 -> 0.2666 here, the twin at
-    0.2600 -> 0.3155: the float32 VO's spread, ROADMAP F6)."""
+    0.1255 -> 0.2199 with one torch thread and 0.0800 -> 0.2612 with two:
+    the float32 VO's spread, ROADMAP F6)."""
     argv = ["--room", "--loop", "--pipelined", "--frames", "40",
             "--height", "180", "--width", "240", "--out", ""]
     out = run_twin("eval_vo", argv)

@@ -26,17 +26,31 @@ def run_twin(tool: str, argv: list):
     return load_tool(tool).main(argv + ["--device", "cpu"])
 
 
-def run_jax(code: str) -> subprocess.CompletedProcess:
-    """``code`` in a fresh interpreter (JAX on the CPU, no x64, as a user
-    runs it) with ``scripts/``, ``tests/`` and the root on its path; fails
-    unless it exits with 0."""
+def _jax_command(code: str) -> tuple:
+    """The command and environment that run ``code`` in a fresh
+    interpreter (JAX on the CPU, no x64, as a user runs it) with
+    ``scripts/``, ``tests/`` and the root on its path."""
     paths = [str(ROOT / d) for d in ("scripts", "tests", "")]
     code = f"import sys; sys.path[:0] = {paths!r}\n" + code
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=900)
+    return ([sys.executable, "-c", code],
+            dict(os.environ, JAX_PLATFORMS="cpu"))
+
+
+def run_jax(code: str) -> subprocess.CompletedProcess:
+    """``code`` in a fresh interpreter (``_jax_command``); fails unless it
+    exits with 0."""
+    cmd, env = _jax_command(code)
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=900)
     assert r.returncode == 0, r.stdout + r.stderr
     return r
+
+
+def _reference_code(tool: str, argv: list, patch: str,
+                    cpu_flag: bool) -> str:
+    argv = argv + (["--cpu"] if cpu_flag else [])
+    return "\n".join([patch, f"import {tool}",
+                      f"sys.argv = [{tool!r}] + {argv!r}", f"{tool}.main()"])
 
 
 def run_reference(tool: str, argv: list, patch: str = "",
@@ -45,10 +59,30 @@ def run_reference(tool: str, argv: list, patch: str = "",
     a subprocess (``run_jax``), after ``patch``; its standard output, or
     its standard error with ``stream="stderr"`` (a tool that logs
     there)."""
-    argv = argv + (["--cpu"] if cpu_flag else [])
-    code = "\n".join([patch, f"import {tool}",
-                      f"sys.argv = [{tool!r}] + {argv!r}", f"{tool}.main()"])
-    return getattr(run_jax(code), stream)
+    return getattr(run_jax(_reference_code(tool, argv, patch, cpu_flag)),
+                   stream)
+
+
+def start_reference(tool: str, argv: list,
+                    patch: str = "") -> subprocess.Popen:
+    """``run_reference``'s subprocess, started and left running, so that
+    several run at once; ``finish`` waits for it."""
+    cmd, env = _jax_command(_reference_code(tool, argv, patch, True))
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish(proc: subprocess.Popen, timeout: float = 900) -> str:
+    """The standard output of a ``start_reference`` subprocess, which must
+    exit with 0 within ``timeout`` seconds (it is killed otherwise)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, out + err
+    return out
 
 
 def last_json(text: str) -> dict:

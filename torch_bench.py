@@ -16,8 +16,11 @@ Measurement notes for the card:
 - the host syncs of one pair are counted (``set_sync_debug_mode``) and
   logged: where the frontend reads back inside a pair, the pipeline's
   overlap is partial;
-- ``SARA_BENCH_BATCH`` > 1 runs the pairs of a batch one after another: the
-  port has no vmapped frontend.
+- ``SARA_BENCH_BATCH`` > 1 runs each batch as one batched pass, the twin
+  of ``bench.py``'s ``jax.vmap``: ``_compute_sift_batch`` on the batch's A
+  frames and on its B frames, then one ``_match_sets`` over the pair axis
+  (``features/api.py``, ``matching/brute_force.py``), so a batch's
+  launches do not grow with its size; its host syncs are counted too.
 Without OpenCV there is no baseline:
 ``vs_baseline`` and the OpenCV ratios are null, and the quality warp is
 made by ``warp_homography`` with zeros at the border where OpenCV
@@ -188,19 +191,23 @@ def quality_vs_opencv(img, device=None):
 
 def bench_ours(a, b, device=None, record=None):
     """Frames per second of the port's frontend + matcher on the pair
-    (a, b), depth-2 pipelined over ``ITERS`` batches of ``BATCH`` pairs;
+    (a, b), depth-2 pipelined over ``ITERS`` batches of ``BATCH`` pairs
+    (a batch of more than one pair is one batched pass);
     returns (frames/s, keypoints of a, matches) of the warm-up pair. A
     dict ``record`` receives what the run saw besides: the keypoint and
     match counts of the warm-up pair, the match counts of the first batch
-    and of every pipelined one, ms per batch, the host syncs of one pair
-    and the sampler kernels' launches."""
+    and of every pipelined one, ms per batch, the batch size, the host
+    syncs of one pair and of one batch, and the sampler kernels'
+    launches."""
     import dataclasses
 
     import torch
 
     from sara_tpu_torch import resolve_device
     from sara_tpu_torch.features import SIFTParams, compute_sift_keypoints
+    from sara_tpu_torch.features.api import _compute_sift_batch
     from sara_tpu_torch.matching import MatchParams, match_descriptors
+    from sara_tpu_torch.matching.brute_force import _match_sets
     from sara_tpu_torch.ops import patch_sampler as ps
     from sara_tpu_torch.utils.timing import count_syncs
 
@@ -232,8 +239,13 @@ def bench_ours(a, b, device=None, record=None):
     def batched(imgs_a, imgs_b):
         if BATCH == 1:
             return one(imgs_a[0], imgs_b[0])
-        # No vmapped frontend in the port: the pairs run one after another.
-        return torch.stack([one(x, y) for x, y in zip(imgs_a, imgs_b)])
+        # One batched pass per side and one batched matching, as bench.py
+        # vmaps ``one`` over the batch.
+        xa = _compute_sift_batch(imgs_a, params, device=dev)
+        xb = _compute_sift_batch(imgs_b, params, device=dev)
+        _, ok, _ = _match_sets(xa.descriptors, xa.mask, xb.descriptors,
+                               xb.mask, mp.ratio, mp.mutual)
+        return ok.sum(dim=-1)
 
     rs = np.random.RandomState(0)
     batch_a = torch.as_tensor(np.stack(
@@ -252,8 +264,12 @@ def bench_ours(a, b, device=None, record=None):
             + (" (the frontend reads back inside a pair, so the pipeline "
                "overlaps the next pair's launches only after the last of "
                "them)" if syncs["syncs"] else ""))
+        batch_syncs = (count_syncs(lambda: batched(batch_a, batch_b))
+                       if BATCH > 1 else syncs)
+        log(f"host syncs per batch of {BATCH}: {batch_syncs['syncs']}")
     else:
-        syncs = {"syncs": None, "at": "not measured on the CPU"}
+        syncs = batch_syncs = {"syncs": None,
+                               "at": "not measured on the CPU"}
 
     # Depth-2 pipeline: launch batch i+1 before reading batch i's counts.
     seen = []
@@ -275,7 +291,9 @@ def bench_ours(a, b, device=None, record=None):
                       first_counts=first.tolist(),
                       pipelined_counts=[c.tolist() for c in seen],
                       ms_per_batch=dt * 1e3, syncs_per_pair=syncs["syncs"],
-                      syncs_at=syncs["at"], sampler_launches=launches)
+                      syncs_at=syncs["at"],
+                      syncs_per_batch=batch_syncs["syncs"], batch=BATCH,
+                      sampler_launches=launches)
     return fps, n_a, n_m
 
 
