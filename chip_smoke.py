@@ -157,15 +157,20 @@ raises, so the script exits nonzero and prints no result line):
    launch on the throughput path (the "gather" sampler), the quality run's
    K1 launches, null OpenCV ratios without cv2, a roofline fraction below
    1.05 (``phase_bench``);
-22. phase "probes": the nine probe twins ``scripts/torch_probe_*.py``
-   through their ``main(argv)`` at the probes' defaults (``PROBE_RUNS``):
-   the frontend's stage prefixes and trace, K1 against row gathers, the VO
-   stages, the BA pieces, the dense-Schur passes and pass A's sub-stages
-   with the S contraction's TFLOP/s, the segment sums; gates: every stage
-   printed in order, K1 against the bilinear gather, the segment sums'
-   errors, the dense pieces composed equal to one solver iteration
-   (``phase_probes``); the sampler counts set to 0 just before each twin
-   and read just after;
+22. phase "probes": the 21 probe twins ``scripts/torch_probe_*.py``
+   through their ``main(argv)`` at the probes' defaults or a printed cut
+   (``PROBE_RUNS``): the frontend's stage prefixes and trace, K1 against
+   row gathers, the VO stages, the BA pieces, the dense-Schur passes and
+   pass A's sub-stages with the S contraction's TFLOP/s, the segment sums,
+   the batch probes, the global SfM's and the city's stage errors, the
+   dense-Schur ablation and its camera-column lowerings, the descriptor
+   internals, the frontend sweep, the tracker's growth, the capacity
+   program and the fault probes' prefixes; gates: every stage printed in
+   order, K1 against the bilinear gather, the segment sums' errors, the
+   dense pieces composed equal to one solver iteration, the lowerings
+   within float32 rounding, the capacity probe's assert, the descriptors
+   whole and in sections equal (``phase_probes``); the sampler counts set
+   to 0 just before each twin and read just after;
 23. phase "batch" (the batched frontend): windows of B = 1, 4 and 8
    480x640 frames (the frame pair, then renders of the room loop) through
    ``_compute_sift_batch`` with the kernel sampler and one batched
@@ -3557,6 +3562,37 @@ PROBE_RUNS = [
     ("probe_ab_vo", ["--frames", "20", "--seeds", "2"],
      "20 frames and 2 seeds (default 40 and 3) at 240x320",
      ['{"mode": ', '{"mode": ', '{"summary": ', '{"summary": ']),
+    ("probe_sfm_ate_stages", ["--full"],
+     "nothing cut (128, 256 and 512 views, with triangulation and BA)",
+     ["V=", "      triangulation: ", "      BA round "] * 3),
+    ("probe_city_stages", [], "nothing cut (96 views)",
+     ["edges ", "global rotations:", "final ATE", "post-averaging ATE"]),
+    ("probe_dense_ablate", [], "nothing cut (C=256, P=100k, O=800k)",
+     ["sps", "passA-jac", "passA-noS", "passA-", "cost", "passB", "solve",
+      "full LM iter"]),
+    ("probe_dense_micro", [], "nothing cut (N=1,835,008, C=256)",
+     ["onehot", "rank3", "take", "pairs", "stack42", "poseMM",
+      "poseGather"]),
+    ("probe_desc_micro", [], "nothing cut ((3, 480, 640, 36) bf16, "
+     "K = 3840)",
+     ["desc: 4 gathers", "desc: wfo build", "desc: wfo+einsum",
+      "desc: gemm+shift", "peaks: lowe_smooth", "peaks: find_peaks",
+      "peaks: argmax-top2", "peaks: sample"]),
+    ("probe_frontend_sweep", [], "nothing cut (time mode, 480x640)",
+     ["base", "oct4", "refine2", "oct4+ref2", "cap4096", "cap4096+o4r2"]),
+    ("probe_tracker_flat", [], "nothing cut (500 frames, cap 4096; the "
+     "NumPy path to 200)",
+     ["incremental (native core)", "  frame ", "  growth frame",
+      "batch path", "  frame "]),
+    ("probe_capacity3072", [], "nothing cut (480x640, SIFTParams())",
+     ["capacity:", "frame A:", "frame B:", "matches:", "single-frame warm:",
+      "relative pose:", "OK"]),
+    ("probe_fault_bisect", ["all"], "every stage in one process (the "
+     "probe runs one per process), cap 3072",
+     ["detect", "orient", "peaks", "compact", "desc", "merge OK:"]),
+    ("probe_fault_desc", ["all"], "every stage in one process (the probe "
+     "runs one per process)",
+     ["gather", "einsum", "full", "chunk"]),
 ]
 # Phase "probes": the segment sums' largest errors against a float64
 # reference. The scatters add each row once: within 1e-5 per segment over
@@ -3585,7 +3621,7 @@ def stages_in_order(text: str, names: list) -> list:
 
 
 def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
-    """The eleven probe twins ``scripts/torch_probe_*.py`` through their
+    """The 21 probe twins ``scripts/torch_probe_*.py`` through their
     ``main(argv)`` at the probes' defaults (``PROBE_RUNS``, each cut
     printed). Gates: each printed every stage of its probe, in order;
     the batch probe's batched detection within 0.05 px of the single one
@@ -3598,8 +3634,16 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
     scatters within ``SEGSUM_SCATTER_TOL`` and its cumsums within sqrt(O)
     float32 epsilons of the largest prefix of the float64 sums; twin 7's pieces,
     composed, at one ``dense_schur_bundle_adjust`` iteration's cost within
-    1e-6 relative. The sampler counts are set to 0 just before each run
-    and read just after: twin 4 launches K1's vector variant, no other
+    1e-6 relative, and the dense ablation's pieces at one
+    ``dense_schur_bundle_adjust_strata`` iteration's; each lowering of the
+    dense micro-probe within its float32 rounding bound of the float64
+    product (``torch_probe_dense_micro.agreement``); the capacity probe's
+    own assert (inliers > 0.9 n, R error < 0.5 deg, t error < 1 deg); the
+    fault probes' every stage finite, the descriptors of all slots at
+    once and in sections within ``TOLERANCE``; the SfM and city stage
+    probes' errors finite at every view count (no accuracy gate: F4 fails
+    in both packages). The sampler counts are set to 0 just before each
+    run and read just after: twin 4 launches K1's vector variant, no other
     twin a sampler kernel. Returns each run's seconds, result, printed
     lines and launches."""
     import contextlib
@@ -3648,10 +3692,27 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
                       else r["max_rel_err"] <= SEGSUM_SCATTER_TOL)
                 if not ok:
                     bad.append(f"{name}: {key} error {r}")
-        elif name == "probe_dense_ba":
+        elif name in ("probe_dense_ba", "probe_dense_ablate"):
             a, b = res["cost_composed"], res["cost_solver"]
             if not abs(a - b) <= 1e-6 * abs(b):
                 bad.append(f"{name}: composed cost {a} vs solver {b}")
+        elif name == "probe_dense_micro":
+            ratios = mod.agreement(res.pop("outputs"), res.pop("inputs"))
+            res["error_over_bound"] = ratios
+            if not max(ratios.values()) <= 1.0:
+                bad.append(f"{name}: lowerings beyond float32 rounding "
+                           f"{ratios}")
+        elif name == "probe_fault_desc" and not (
+                res["full_vs_chunk"] <= TOLERANCE):
+            bad.append(f"{name}: full vs chunk {res['full_vs_chunk']}")
+        elif name == "probe_sfm_ate_stages":
+            nums = [v for r in res.values() for k, v in r.items()
+                    if k != "full"]
+            nums += [v for r in res.values()
+                     for b in r.get("full", {}).get("ba", [])
+                     for v in b.values()]
+            if len(res) != 3 or not all(math.isfinite(v) for v in nums):
+                bad.append(f"{name}: {res}")
         elif name == "probe_trace_frontend" and dev.type == "cuda" and not res:
             bad.append(f"{name}: no device events")
         elif name == "probe_batch_parity":
@@ -3667,6 +3728,10 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
             if any(r["accepted"] < frames - 1 for runs in
                    res["runs"].values() for r in runs):
                 bad.append(f"{name}: {res['runs']}")
+        if name in ("probe_fault_bisect", "probe_fault_desc",
+                    "probe_city_stages") and not all(
+                    math.isfinite(v) for v in res.values()):
+            bad.append(f"{name}: not finite {res}")
         out[name] = {"s": secs, "cut": cut, "result": res,
                      "sampler_counts": counts,
                      "printed": text.strip().splitlines()}

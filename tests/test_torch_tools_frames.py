@@ -5,7 +5,8 @@ against the JAX tools.
 Each twin's ``main(argv)`` runs in this process with ``--device cpu`` at a
 small size and is gated by ``chip_smoke.tool_failures``, the gates phase
 "tools" applies on the card. The JAX tool runs in a subprocess (JAX on the
-CPU, no x64, as a user runs it) on the same seed and size; where it reads
+CPU, no x64, as a user runs it) on the same seed and size, beside the twin
+in the two heaviest tests (``tool_twins.run_beside``); where it reads
 the reference's photographs (its data directory, missing here), the
 subprocess hands it ``make_room(seed=1)``'s procedural room, the twin's own
 fallback. Compared: the same accepted frames, each ATE within the gate,
@@ -23,7 +24,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tool_twins import (  # noqa: E402
-    PROCEDURAL_ROOM, last_json, run_reference, run_twin)
+    PROCEDURAL_ROOM, last_json, run_beside, run_reference, run_twin,
+    start_reference)
 from chip_smoke import tool_failures  # noqa: E402
 
 
@@ -48,10 +50,10 @@ def test_bench_vo_frontend_against_the_tool():
     """4 frames, windows of 2, batched and per frame: the same accepted
     frames as the tool, each ATE within phase "vo"'s gate (0.10)."""
     argv = ["--frames", "4", "--batch", "2"]
-    out = run_twin("bench_vo_frontend", argv)
+    out, ref = run_beside(start_reference("bench_vo_frontend", argv),
+                          lambda: run_twin("bench_vo_frontend", argv))
     assert set(out) == {"batched", "per-frame"}
     assert not tool_failures("bench_vo_frontend", out, argv), out
-    ref = run_reference("bench_vo_frontend", argv)
     rows = re.findall(r"(batched|per-frame)\s*: (\d+)/\d+ accepted, "
                       r"\d+ ms/frame, ATE ([\d.]+)", ref)
     assert len(rows) == 2
@@ -67,14 +69,15 @@ def test_eval_real_images_against_the_tool(tmp_path):
     at these 4 views both SfM ATEs within 0.15 (at 10 views the RANSAC draw
     spreads them over 0.006-0.88 in both packages)."""
     argv = ["--frames", "4"]
-    out = run_twin("eval_real_images", argv + ["--out",
-                                               str(tmp_path / "t.json")])
+    proc = start_reference(
+        "eval_real_images", argv + ["--out", str(tmp_path / "j.json")],
+        PROCEDURAL_ROOM)
+    out, ref = run_beside(proc, lambda: run_twin(
+        "eval_real_images", argv + ["--out", str(tmp_path / "t.json")]))
     assert not tool_failures("eval_real_images", out, argv), out
     printed = json.loads((tmp_path / "t.json").read_text())
     assert printed == {k: out[k] for k in printed}
-    ref = json.loads(run_reference(
-        "eval_real_images", argv + ["--out", str(tmp_path / "j.json")],
-        PROCEDURAL_ROOM))
+    ref = json.loads(ref)
     assert set(ref) == set(printed)
     for part in ("vo", "global_sfm"):
         assert set(ref[part]) == set(out[part])

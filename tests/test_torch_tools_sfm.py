@@ -7,7 +7,8 @@ Each twin's ``main(argv)`` runs in this process with ``--device cpu`` at a
 small size and is gated by ``chip_smoke.tool_failures``, the gates phase
 "tools" applies on the card. The JAX tool runs in a subprocess (JAX on the
 CPU, no x64, as a user runs it) on the same seed and size, except where a
-test names another way.
+test names another way; in the two slowest comparisons it runs beside the
+twin (``tool_twins.run_beside``).
 """
 
 import json
@@ -21,7 +22,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tool_twins import (  # noqa: E402
-    PROCEDURAL_ROOM, ROOT, last_json, run_reference, run_twin)
+    PROCEDURAL_ROOM, ROOT, last_json, run_beside, run_reference, run_twin,
+    start_reference)
 from chip_smoke import load_tool, tool_failures  # noqa: E402
 
 TINY = dict(C=8, P=400, O=3200)
@@ -94,15 +96,16 @@ def test_bench_sfm_scale_against_the_tool():
     """16 ring views: the same verified edges as the tool, the ATE within
     0.02 of the tool's, the same keys on stdout."""
     argv = ["--views", "16"]
-    out = run_twin("bench_sfm_scale", argv)
-    assert not tool_failures("bench_sfm_scale", out, argv), out
     capture = ("import sara_tpu.sfm.global_sfm as g; _run = g.run_global_sfm\n"
                "def _rec(*a, **k):\n"
                "    o = _run(*a, **k)\n"
                "    print('EDGES', [[int(i) for i in e] for e in o['edges']])\n"
                "    return o\n"
                "g.run_global_sfm = _rec")
-    stdout = run_reference("bench_sfm_scale", argv, capture)
+    out, stdout = run_beside(start_reference("bench_sfm_scale", argv,
+                                             capture),
+                             lambda: run_twin("bench_sfm_scale", argv))
+    assert not tool_failures("bench_sfm_scale", out, argv), out
     edges = json.loads(re.search(r"EDGES (\[.*\])", stdout).group(1))
     ref = last_json(stdout)
     assert sorted(map(tuple, edges)) == sorted(out["edges"])
@@ -149,13 +152,13 @@ def test_bench_config5_real_against_the_tool(tmp_path):
     within 1.25 times the tool's own plus 0.02 (a 12-view loop is coarse:
     the tool ends at ATE 0.3663 here, 0.2087 at 24 views; CPU runs)."""
     argv = ["--views", "12", "--ba-blocks", "4", "--mesh", "1"]
-    out = run_twin("bench_config5_real",
-                   argv + ["--json", str(tmp_path / "t.json")])
-    assert not tool_failures("bench_config5_real", out, argv), out
-    assert [r["mesh_devices"] for r in out["partitioned_ba_scaling"]] == [1]
-    run_reference(
+    proc = start_reference(
         "bench_config5_real", argv + ["--json", str(tmp_path / "j.json")],
         PROCEDURAL_ROOM, cpu_flag=False)
+    out, _ = run_beside(proc, lambda: run_twin(
+        "bench_config5_real", argv + ["--json", str(tmp_path / "t.json")]))
+    assert not tool_failures("bench_config5_real", out, argv), out
+    assert [r["mesh_devices"] for r in out["partitioned_ba_scaling"]] == [1]
     ref = json.loads((tmp_path / "j.json").read_text())
     assert set(ref) == set(out)
     assert out["pairs"] == ref["pairs"]

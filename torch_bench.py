@@ -87,6 +87,40 @@ def load_pair(h=480, w=640):
     return base, np.roll(base, 16, axis=1)
 
 
+def probe_frames(n=1, h=480, w=640):
+    """(frames, source): ``n`` <= 2 gray frames in [0, 1] at (h, w) for
+    the probes' twins, the reference's photographs (``QUALITY_SCENES``'
+    first ``n``) where they exist, else renders of ``tests/render3d.py``'s
+    ``make_room(seed=1)`` from the room loop (positions 0 and 5 of its 100,
+    ``scripts/probe_ab_vo.py``'s path), and the name of that source."""
+    paths = [os.path.join(REFERENCE_DATA, m) for m in QUALITY_SCENES[:n]]
+    if all(os.path.exists(p) for p in paths):
+        try:
+            return ([_read_gray(p, h, w) for p in paths],
+                    "photographs " + ", ".join(QUALITY_SCENES[:n]))
+        except Exception as e:
+            log(f"photographs unreadable ({e}); the rendered room instead")
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    from render3d import make_room, render
+
+    planes = make_room(seed=1)
+    K = np.array([[0.94 * w, 0, w / 2], [0, 0.94 * w, h / 2], [0, 0, 1.0]])
+    frames = []
+    for i in range(0, 5 * n, 5):
+        a = 2 * np.pi * i / 100.0
+        c = np.array([0.5 + 1.6 * np.sin(a), 0.0,
+                      4.0 + 1.6 * (1 - np.cos(a))])
+        yaw = 0.25 * np.sin(a)
+        R = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                      [-np.sin(yaw), 0, np.cos(yaw)]])
+        with np.errstate(invalid="ignore", divide="ignore"):
+            frames.append(np.asarray(render(planes, K, R, -R @ c,
+                                            hw=(h, w)), np.float32))
+    return frames, f"make_room(seed=1) rendered at {h}x{w}"
+
+
 def quality_tool():
     """``scripts/torch_eval_detection_quality.py``, loaded by path."""
     path = os.path.join(ROOT, "scripts", "torch_eval_detection_quality.py")
