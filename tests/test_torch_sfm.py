@@ -9,9 +9,11 @@ compared by outcome: on the reference's keypoint-level sequence the port's
 ATE must be at most the reference's + 0.02 and within the reference
 tests' gates (0.15 with 0.3 px noise, 0.02 without). The port runs its
 bundle adjustment in float32 (the bfloat16 dense path), the reference
-here in float64 (the suite's conftest turns on JAX x64).
+here in float64 (the suite's conftest turns on JAX x64), and once, on the
+noisy sequence, in a subprocess without x64, as its users run it.
 """
 
+import json
 import sys
 from pathlib import Path
 
@@ -40,6 +42,7 @@ from sara_tpu_torch.viz import write_html_viewer
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tests"))
+import tool_twins  # noqa: E402
 from render3d import make_room, render  # noqa: E402
 from test_sfm_pipeline import _make_sequence  # noqa: E402
 
@@ -310,24 +313,79 @@ VO_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(VO_CASES))
-def test_vo_keypoints_against_the_reference(case):
-    n, noise, seed, window, gate = VO_CASES[case]
+# The reference's VO as its users run it: JAX without x64 (in this suite's
+# x64 it builds its BA problem, and more, in float64), in a subprocess on
+# the keypoints saved at ``sys.argv[1]``; prints its acceptances and
+# trajectory as one JSON line.
+REFERENCE_VO_WITHOUT_X64 = """
+import json
+import jax
+import jax.numpy as jnp
+import numpy as np
+from sara_tpu.core.types import Keypoints
+from sara_tpu.sfm import OdometryConfig, OdometryPipeline
+d = np.load(sys.argv[1])
+cfg = OdometryConfig(rel_pose_samples=200, pnp_samples=200,
+                     rel_pose_min_inliers=50, pnp_min_inliers=20,
+                     ba_window=int(d["window"]))
+pipe = OdometryPipeline(d["K"], cfg)
+ok = [bool(pipe.process_keypoints(Keypoints(*(jnp.asarray(d[f][i])
+                                              for f in Keypoints._fields)), i))
+      for i in range(len(d["xy"]))]
+print(json.dumps({"ok": ok, "trajectory": pipe.pose_graph.trajectory().tolist(),
+                  "x64": bool(jax.config.jax_enable_x64)}))
+"""
+
+
+@pytest.fixture(scope="module", autouse=True)
+def reference_vo_without_x64(tmp_path_factory):
+    """The reference's run on the noisy sequence without x64, started in a
+    subprocess when this module starts, so that it runs beside the
+    module's first tests; killed at the end if no test read it."""
+    n, noise, seed, window, _ = VO_CASES["noise0.3"]
+    kps, _, K = _make_sequence(n_frames=n, n_points=300, noise=noise,
+                               seed=seed)
+    path = tmp_path_factory.mktemp("vo") / "sequence.npz"
+    np.savez(path, K=K, window=window, **{
+        f: np.stack([np.asarray(getattr(kp, f)) for kp in kps])
+        for f in kps[0]._fields})
+    cmd, env = tool_twins._jax_command(
+        f"sys.argv[1:] = [{str(path)!r}]\n" + REFERENCE_VO_WITHOUT_X64)
+    proc = tool_twins.start(cmd, env)
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+@pytest.mark.parametrize("case", list(VO_CASES) + ["noise0.3-without-x64"])
+def test_vo_keypoints_against_the_reference(case, reference_vo_without_x64):
+    """``-without-x64``: the reference runs as its users run it (F9), in
+    the subprocess this module started."""
+    base, _, without_x64 = case.partition("-")
+    n, noise, seed, window, gate = VO_CASES[base]
     kps, centers, K = _make_sequence(n_frames=n, n_points=300, noise=noise,
                                      seed=seed)
     cfg = JConfig(rel_pose_samples=200, pnp_samples=200,
                   rel_pose_min_inliers=50, pnp_min_inliers=20,
                   ba_window=window)
-    ref = JPipeline(K, cfg)
-    ref_ok = [ref.process_keypoints(kp, f) for f, kp in enumerate(kps)]
+    if not without_x64:
+        ref = JPipeline(K, cfg)
+        ref_ok = [ref.process_keypoints(kp, f) for f, kp in enumerate(kps)]
+        ref_traj = ref.pose_graph.trajectory()
     port = OdometryPipeline(K, params_from_jax(cfg), device="cpu")
     seen = []
     port.on_accept = lambda kp, v: seen.append((v, kp.xy.device.type))
     ok = [port.process_keypoints(keypoints_from_numpy(kp, "cpu"), f)
           for f, kp in enumerate(kps)]
+    if without_x64:
+        out = json.loads(tool_twins.finish(
+            reference_vo_without_x64).strip().splitlines()[-1])
+        assert out["x64"] is False
+        ref_ok, ref_traj = out["ok"], np.asarray(out["trajectory"])
     assert ok == ref_ok == [True] * n
     assert seen == [(v, "cpu") for v in range(n)]
-    ate_ref = ate_rmse(ref.pose_graph.trajectory(), centers)
+    ate_ref = ate_rmse(ref_traj, centers)
     ate = ate_rmse(port.trajectory(), centers)
     assert ate <= ate_ref + 0.02 and ate < gate, (ate, ate_ref)
     assert port.point_cloud.num_points > 100
@@ -388,3 +446,71 @@ def test_vo_from_pixels_windowed_with_undistortion(room_frames):
     assert ate < 0.2, ate
     assert [p.frame_index for p in pipe.pose_graph.poses] == list(
         np.flatnonzero(ok))
+
+
+# F9's witness (tests/vo_gap_witness.py, ROADMAP §3): ATE of the batched
+# VO on the A/B probe's 20 room frames at 240x320, seeds 0-47, on the CPU
+# (the reference without x64), as recorded on an 8-core Intel Xeon.
+F9_REFERENCE_ATE = [
+    0.0124, 0.0303, 0.0653, 0.0103, 0.0587, 0.1963, 0.0056, 0.0068, 0.022,
+    0.0073, 0.0583, 0.0657, 0.0097, 0.0689, 0.0113, 0.0837, 0.0317, 0.087,
+    0.0416, 0.0144, 0.0649, 0.0968, 0.0097, 0.0215, 0.0228, 0.0082, 0.0089,
+    0.0138, 0.0134, 0.0232, 0.0065, 0.0377, 0.0112, 0.0179, 0.0773, 0.0629,
+    0.054, 0.0859, 0.0806, 0.0369, 0.0209, 0.0672, 0.0548, 0.0233, 0.0232,
+    0.0319, 0.064, 0.0793]
+F9_PORT_ATE = [
+    0.0429, 0.0818, 0.187, 0.0827, 0.0722, 0.0262, 0.0562, 0.0803, 0.0889,
+    0.1851, 0.0353, 0.0184, 0.4707, 0.0195, 0.1001, 0.071, 0.0293, 0.088,
+    0.0233, 0.0595, 0.0601, 0.0574, 0.0623, 0.0126, 0.0294, 0.0087, 0.0635,
+    0.0672, 0.0195, 0.0289, 0.0052, 0.059, 0.0205, 0.0201, 0.0655, 0.0076,
+    0.069, 0.0113, 0.0971, 0.1491, 0.0565, 0.2436, 0.0259, 0.0635, 0.0269,
+    0.2045, 0.0648, 0.0191]
+# The port with its E-RANSAC hypotheses solved in float32 (tried, not
+# kept): further from the reference, not closer.
+F9_PORT_FLOAT32_SOLVE_ATE = [
+    0.0706, 0.0668, 0.1058, 0.0827, 0.0722, 0.0762, 0.0622, 0.064, 0.0812,
+    0.1557, 0.0326, 0.0858, 0.4715, 0.0186, 0.1001, 0.071, 0.0105, 0.0082,
+    0.0733, 0.0595, 0.0082, 0.0574, 0.0623, 0.062, 0.5195, 0.0591, 0.0356,
+    0.0672, 0.0103, 0.0572, 0.1836, 0.0551, 0.0365, 0.0861, 0.0655, 0.0734,
+    0.069, 0.0203, 0.011, 0.0704, 0.0179, 0.0995, 0.0244, 0.0459, 0.0275,
+    0.0834, 0.0648, 0.0072]
+F9_RULE_CASES = {
+    # port sample, expected decision, (lo, hi) bounds on p
+    "recorded": (F9_PORT_ATE, False, (0.01, 0.05)),
+    "float32_solve": (F9_PORT_FLOAT32_SOLVE_ATE, True, (0.0, 0.01)),
+    "tripled": ([3 * a for a in F9_REFERENCE_ATE], True, (0.0, 1e-5)),
+    "same": (F9_REFERENCE_ATE, False, (0.99, 1.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(F9_RULE_CASES))
+def test_vo_gap_witness_decision_rule(case):
+    """The witness's rule on recorded numbers: a gap is real where the
+    two-sided Mann-Whitney p < 0.01 and the bootstrap 95% interval of the
+    port / reference median ratio excludes 1. The recorded 48 seeds have
+    the port's median at 1.91 x the reference's, p = 0.022, and an
+    interval that holds 1: no real gap."""
+    from vo_gap_witness import compare
+
+    port, real, (lo, hi) = F9_RULE_CASES[case]
+    got = compare(port, F9_REFERENCE_ATE)
+    assert got["real"] is real
+    assert lo <= got["p"] <= hi
+    c_lo, c_hi = got["ratio_ci95"]
+    assert got["real"] == (got["p"] < 0.01 and not c_lo <= 1.0 <= c_hi)
+    assert c_lo <= got["ratio"] <= c_hi
+    if case == "recorded":
+        assert got["median"] == [0.05925, 0.031]
+        assert c_lo < 1.0 < c_hi
+
+
+@pytest.mark.parametrize("tdir, cheiral, matches, expected", [
+    (4.44, 248, 248, "G"), (81.86, 142, 248, "B"), (175.6, 0, 248, "F"),
+    (25.46, 248, 248, "M"), (74.35, 157, 248, "B")])
+def test_vo_gap_witness_bootstrap_classes(tdir, cheiral, matches, expected):
+    """The bootstrap pair's outcome classes on recorded frame-1 numbers of
+    the witness's runs (translation-direction error in degrees, cheirality
+    survivors of the 248 matches)."""
+    from vo_gap_witness import bootstrap_class
+
+    assert bootstrap_class(tdir, cheiral, matches) == expected
