@@ -157,7 +157,7 @@ raises, so the script exits nonzero and prints no result line):
    launch on the throughput path (the "gather" sampler), the quality run's
    K1 launches, null OpenCV ratios without cv2, a roofline fraction below
    1.05 (``phase_bench``);
-22. phase "probes": the 21 probe twins ``scripts/torch_probe_*.py``
+22. phase "probes": the 23 probe twins ``scripts/torch_probe_*.py``
    through their ``main(argv)`` at the probes' defaults or a printed cut
    (``PROBE_RUNS``): the frontend's stage prefixes and trace, K1 against
    row gathers, the VO stages, the BA pieces, the dense-Schur passes and
@@ -165,12 +165,15 @@ raises, so the script exits nonzero and prints no result line):
    the batch probes, the global SfM's and the city's stage errors, the
    dense-Schur ablation and its camera-column lowerings, the descriptor
    internals, the frontend sweep, the tracker's growth, the capacity
-   program and the fault probes' prefixes; gates: every stage printed in
-   order, K1 against the bilinear gather, the segment sums' errors, the
-   dense pieces composed equal to one solver iteration, the lowerings
-   within float32 rounding, the capacity probe's assert, the descriptors
-   whole and in sections equal (``phase_probes``); the sampler counts set
-   to 0 just before each twin and read just after;
+   program, the fault probes' prefixes and the match quality of the four
+   sampling-knob settings (orientation maps at stride 1 and 2, nearest or
+   bilinear histogram and descriptor sampling) at 480x640; gates: every
+   stage printed in order, K1 against the bilinear gather, the segment
+   sums' errors, the dense pieces composed equal to one solver iteration,
+   the lowerings within float32 rounding, the capacity probe's assert, the
+   descriptors whole and in sections equal, finite quality counts and a
+   positive repeatability under every knob setting (``phase_probes``); the
+   sampler counts set to 0 just before each twin and read just after;
 23. phase "batch" (the batched frontend): windows of B = 1, 4 and 8
    480x640 frames (the frame pair, then renders of the room loop) through
    ``_compute_sift_batch`` with the kernel sampler and one batched
@@ -3593,7 +3596,16 @@ PROBE_RUNS = [
     ("probe_fault_desc", ["all"], "every stage in one process (the probe "
      "runs one per process)",
      ["gather", "einsum", "full", "chunk"]),
+    ("probe_dog_quality", [], "nothing cut (480x640, first_octave -1, cap "
+     "8192); one render stands for the missing photographs' scenes",
+     ['{"scene": '] * 5),
+    ("probe_sampling_quality", [], "nothing cut (480x640, "
+     "SIFTParams(orientation_downsample=2))",
+     ["opencv: "] + ["hist_nearest="] * 4),
 ]
+# The twins of the two photograph probes: match quality under four
+# settings of the sampling knobs, per scene.
+QUALITY_PROBES = ("probe_dog_quality", "probe_sampling_quality")
 # Phase "probes": the segment sums' largest errors against a float64
 # reference. The scatters add each row once: within 1e-5 per segment over
 # |segment| + mean |segment| (the probe's measure). A cumsum's segment is
@@ -3621,7 +3633,7 @@ def stages_in_order(text: str, names: list) -> list:
 
 
 def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
-    """The 21 probe twins ``scripts/torch_probe_*.py`` through their
+    """The 23 probe twins ``scripts/torch_probe_*.py`` through their
     ``main(argv)`` at the probes' defaults (``PROBE_RUNS``, each cut
     printed). Gates: each printed every stage of its probe, in order;
     the batch probe's batched detection within 0.05 px of the single one
@@ -3642,10 +3654,12 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
     fault probes' every stage finite, the descriptors of all slots at
     once and in sections within ``TOLERANCE``; the SfM and city stage
     probes' errors finite at every view count (no accuracy gate: F4 fails
-    in both packages). The sampler counts are set to 0 just before each
-    run and read just after: twin 4 launches K1's vector variant, no other
-    twin a sampler kernel. Returns each run's seconds, result, printed
-    lines and launches."""
+    in both packages); the quality twins' keypoint, match and correct
+    counts finite and their repeatability > 0 under each of the four knob
+    settings of each scene. The sampler counts are set to 0 just before
+    each run and read just after: twin 4 launches K1's vector variant, no
+    other twin a sampler kernel (the quality twins sample by "gather").
+    Returns each run's seconds, result, printed lines and launches."""
     import contextlib
     import io
 
@@ -3712,6 +3726,12 @@ def phase_probes(ps, card: str, device="cuda", runs=None) -> dict:
                      for b in r.get("full", {}).get("ba", [])
                      for v in b.values()]
             if len(res) != 3 or not all(math.isfinite(v) for v in nums):
+                bad.append(f"{name}: {res}")
+        elif name in QUALITY_PROBES:
+            if not res or len(res) % 4 or not all(
+                    all(math.isfinite(v) for v in r["kp"]
+                        + [r["matches"], r["correct"]])
+                    and r["repeatability"] > 0 for r in res):
                 bad.append(f"{name}: {res}")
         elif name == "probe_trace_frontend" and dev.type == "cuda" and not res:
             bad.append(f"{name}: no device events")

@@ -35,20 +35,16 @@ TOOLS_WITHOUT_TWIN = {
                            "cli.py (python -m sara_tpu_torch.calib.cli)",
 }
 # The probes of scripts/ not ported yet, and why each waits (none is
-# declared unnecessary): both measure match quality on the reference's own
-# photographs, which a procedural stand-in would not measure.
-PROBES_QUEUED = {
-    "probe_sampling_quality.py": "waits for the reference's photographs "
-                                 "in the repo",
-    "probe_dog_quality.py": "waits for the reference's photographs in the "
-                            "repo",
-}
-# The probe twins of the last slice, loaded by the JAX-free import check.
+# declared unnecessary). Every probe has its twin.
+PROBES_QUEUED = {}
+# The probe twins of the last two slices, loaded by the JAX-free import
+# check.
 LAST_PROBE_TWINS = ("probe_sfm_ate_stages", "probe_city_stages",
                     "probe_dense_ablate", "probe_dense_micro",
                     "probe_desc_micro", "probe_frontend_sweep",
                     "probe_tracker_flat", "probe_capacity3072",
-                    "probe_fault_bisect", "probe_fault_desc")
+                    "probe_fault_bisect", "probe_fault_desc",
+                    "probe_dog_quality", "probe_sampling_quality")
 
 
 def test_import_leaves_jax_out():
@@ -87,6 +83,10 @@ def test_import_leaves_jax_out():
             "img = np.random.RandomState(0).rand(64, 64).astype('f4'); "
             "q.run_ours(img, img, 0, 256, 128, device='cpu'); "
             f"[chip_smoke.load_tool(n) for n in {LAST_PROBE_TWINS!r}]; "
+            # The photograph probes' twins, through their SIFT runs.
+            "[chip_smoke.load_tool(n).run_with(img, img, 2, True, True, "
+            "cap=256, device='cpu') for n in ('probe_dog_quality', "
+            "'probe_sampling_quality')]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -286,7 +286,7 @@ def test_every_module_has_a_twin():
 def test_every_tool_has_a_twin():
     """Every command-line tool of scripts/ has a twin scripts/torch_<name>,
     or a reason in TOOLS_WITHOUT_TWIN; every probe_*.py has one too or
-    stands in PROBES_QUEUED with its reason (2 of the 23); bench.py's
+    stands in PROBES_QUEUED with its reason (0 of the 23); bench.py's
     twin is torch_bench.py at the root; every twin has its tool."""
     tools = sorted(p.name for p in (ROOT / "scripts").glob("*.py")
                    if not p.name.startswith("torch_"))
@@ -304,9 +304,9 @@ def test_every_tool_has_a_twin():
     assert (ROOT / "torch_bench.py").exists() and (ROOT / "bench.py").exists()
     probes = [t for t in tools if t.startswith("probe_")]
     assert len(probes) == 23
-    assert len(PROBES_QUEUED) == 2
+    assert len(PROBES_QUEUED) == 0
     assert sum((ROOT / "scripts" / f"torch_{t}").exists()
-               for t in probes) == 21
+               for t in probes) == 23
 
 
 @pytest.mark.parametrize("rel", PORTED)

@@ -1,5 +1,6 @@
-"""The twins of the last ten probes of ``scripts/`` that run without the
-reference's photographs (``scripts/torch_probe_*.py``), on the CPU.
+"""The twins of the last twelve probes of ``scripts/``
+(``scripts/torch_probe_*.py``), on the CPU: ten that run without the
+reference's photographs and the two that measure match quality on them.
 
 Each twin runs once at a tiny size with ``--device cpu``, through
 ``chip_smoke.phase_probes`` (so phase "probes"' gates apply to it as on the
@@ -24,7 +25,12 @@ reference on the same inputs, made from the probes' seeds:
   sums, from their tiny runs, to the JAX programs' at a 96x128 frame, the
   masked slots of the detector and of the peak finder set to zero in both
   packages (their contents are unspecified and differ between the
-  packages' top-k tie orders).
+  packages' top-k tie orders);
+- the two quality twins' ``run_with`` under each of their probes' four
+  knob settings (orientation maps at stride 1 or 2, nearest or bilinear
+  histogram and descriptor sampling) to the probes' own, on a 120x160
+  render and its warp at capacity 512: keypoints by overlap, the paired
+  keypoints' descriptors, and the match sets (tolerances in the test).
 
 The JAX runs that compile most start in subprocesses at the module's
 start and run beside the twins.
@@ -54,6 +60,7 @@ from tool_twins import (  # noqa: E402,F401
 HW = "96x128"
 HW_PAIR = (96, 128)
 HW_SWEEP = "64x96"
+HW_QUALITY = "120x160"
 DESC_SHAPE = dict(S=2, Hc=24, Wc=32, FB=36, K=16)
 SFM_VIEWS = ["16", "20", "24"]
 # The view counts held to the JAX probe (each count is a compile there).
@@ -74,13 +81,16 @@ TINY = {
     "probe_capacity3072": (["--hw", HW], {}),
     "probe_fault_bisect": (["all", "3072", "--hw", HW], {}),
     "probe_fault_desc": (["all", "--hw", HW], {}),
+    "probe_dog_quality": (["--hw", HW_QUALITY, "--cap", "512"], {}),
+    "probe_sampling_quality": (["--hw", HW_QUALITY], {}),
 }
 # The tiny runs in three interpreters at once; the last one's stage sums
 # are held to the JAX programs', so its masked slots are zeroed
 # (``tool_twins.zero_masked_slots``).
 GROUPS = (("probe_sfm_ate_stages", "probe_dense_ablate", "probe_dense_micro",
            "probe_desc_micro", "probe_tracker_flat"),
-          ("probe_city_stages", "probe_frontend_sweep"),
+          ("probe_city_stages", "probe_frontend_sweep", "probe_dog_quality",
+           "probe_sampling_quality"),
           ("probe_capacity3072", "probe_fault_bisect", "probe_fault_desc"))
 ZEROED_GROUP = GROUPS[-1]
 RUNS = [run for run in PROBE_RUNS if run[0] in TINY]
@@ -183,6 +193,89 @@ sys.argv = ["probe_city_stages", "{views}"]
 probe_city_stages.main()
 """
 
+# The quality probes at the tests' size: a render and its warp (cv2, the
+# tool's), capacity 512.
+QUALITY_HW = (120, 160)
+QUALITY_CAP = 512
+
+
+def dog_probe_configs() -> list:
+    """The four (label, knobs) of ``scripts/probe_dog_quality.py``'s
+    ``main`` (its ``configs``), read from its source."""
+    import ast
+
+    tree = ast.parse((ROOT / "scripts" / "probe_dog_quality.py").read_text())
+    main = next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    node = next(n for n in main.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "configs")
+    return eval(compile(ast.Expression(node.value), "configs", "eval"), {})
+
+
+# (probe, knobs) of each case: the dog probe's four configurations, then
+# the sampling probe's hist x desc nearest at stride 2.
+QUALITY_CASES = (
+    [("probe_dog_quality", kw) for _, kw in dog_probe_configs()]
+    + [("probe_sampling_quality", dict(ds=2, desc_nearest=d,
+                                       hist_nearest=h))
+       for h in (False, True) for d in (False, True)])
+QUALITY_IDS = [
+    f"{p[len('probe_'):-len('_quality')]}-ds{kw['ds']}"
+    f"-hist_{'near' if kw['hist_nearest'] else 'bilin'}"
+    f"-desc_{'near' if kw['desc_nearest'] else 'bilin'}"
+    for p, kw in QUALITY_CASES]
+KP_FIELDS = ("xy", "scale", "orientation", "descriptors", "mask")
+# The probes' own code on the render: the dog probe's ``run_with``, and the
+# sampling probe's loop body (its ``SIFTParams(orientation_downsample=2)``
+# with the two knobs) at the same capacity; every ``compute_sift_keypoints``
+# result is kept, and saved with the matches and both images.
+JAX_QUALITY = ONE_THREAD + """
+import dataclasses
+import numpy as np
+import jax.numpy as jnp
+import torch_bench
+import eval_detection_quality as q
+import probe_dog_quality
+import sara_tpu.features as F
+from sara_tpu.features import SIFTParams
+from sara_tpu.matching import MatchParams, match_descriptors
+(img,), _ = torch_bench.probe_frames(1, *{hw!r})
+H = q.make_warp(*img.shape)
+warped = q.warp_image(img, H)
+seen = []
+run = F.compute_sift_keypoints
+def kept(im, p):
+    seen.append(run(im, p))
+    return seen[-1]
+F.compute_sift_keypoints = kept
+def sampling(ds, desc_nearest, hist_nearest, cap):
+    p = dataclasses.replace(SIFTParams(orientation_downsample=ds),
+                            hist_sample_nearest=hist_nearest,
+                            desc_sample_nearest=desc_nearest)
+    p = dataclasses.replace(p, total_capacity=cap,
+                            dog=dataclasses.replace(p.dog, capacity=cap // 2))
+    ka = F.compute_sift_keypoints(jnp.asarray(img), p)
+    kb = F.compute_sift_keypoints(jnp.asarray(warped), p)
+    m = match_descriptors(ka, kb, MatchParams(ratio=0.8))
+    sel_a, sel_b = np.asarray(ka.mask), np.asarray(kb.mask)
+    ra, rb = np.cumsum(sel_a) - 1, np.cumsum(sel_b) - 1
+    mm = np.asarray(m.mask)
+    return np.stack([ra[np.asarray(m.i)[mm]], rb[np.asarray(m.j)[mm]]], 1)
+out = dict(img=img, warped=warped)
+for c, (probe, kw) in enumerate({cases!r}):
+    seen.clear()
+    if probe == "probe_dog_quality":
+        pairs = probe_dog_quality.run_with(img, warped, cap={cap}, **kw)[2]
+    else:
+        pairs = sampling(cap={cap}, **kw)
+    out[f"{{c}}_pairs"] = np.asarray(pairs, np.int64).reshape(-1, 2)
+    for side, k in zip("ab", seen):
+        for f in {fields!r}:
+            out[f"{{c}}_{{side}}_{{f}}"] = np.asarray(getattr(k, f))
+np.savez({path!r}, **out)
+print("saved", len({cases!r}))
+"""
+
 
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
@@ -191,6 +284,7 @@ def jax_runs(tmp_path_factory):
     start; a test waits for its run's standard output. Killed at the
     module's end if still running."""
     city = tmp_path_factory.mktemp("city") / "out.npz"
+    quality = tmp_path_factory.mktemp("quality") / "out.npz"
     prelude = SIFT_PRELUDE.format(hw=HW_PAIR)
     stages = {
         "bisect_a": ("probe_fault_bisect", ("detect", "orient", "peaks"),
@@ -204,6 +298,9 @@ def jax_runs(tmp_path_factory):
         "city": start_jax(JAX_CITY.format(path=str(city), keys=CITY_KEYS,
                                           views=CITY_VIEWS), nice=NICE),
         "capacity": start_jax(prelude + JAX_CAPACITY, nice=NICE),
+        "quality": start_jax(JAX_QUALITY.format(
+            hw=QUALITY_HW, cases=QUALITY_CASES, cap=QUALITY_CAP,
+            fields=KP_FIELDS, path=str(quality)), nice=NICE),
         **{name: start_jax(prelude + JAX_STAGES.format(
             probe=probe, stages=st, merge=merge), nice=NICE)
            for name, (probe, st, merge) in stages.items()},
@@ -216,6 +313,7 @@ def jax_runs(tmp_path_factory):
         return outs[name]
 
     output.city_path = city
+    output.quality_path = quality
     yield output
     for proc in procs.values():
         if proc.poll() is None:
@@ -249,7 +347,7 @@ def test_every_queued_probe_has_a_run_and_a_tiny_size():
     assert sorted(TINY) == sorted(NAMES)
     assert sorted(n for g in GROUPS for n in g) == sorted(NAMES)
     # The other eleven runs are held in tests/test_torch_probes.py.
-    assert len(PROBE_RUNS) == 21 and len(NAMES) == 10
+    assert len(PROBE_RUNS) == 23 and len(NAMES) == 12
     assert all((ROOT / "scripts" / f"torch_{n}.py").exists()
                and (ROOT / "scripts" / f"{n}.py").exists() for n in NAMES)
 
@@ -532,3 +630,91 @@ def test_capacity_counts_equal_the_jax_program(jax_runs, printed):
     assert ref["matches"] > 20
     assert got["inliers"] == got["n"] == 300
     assert got["rerr"] < 0.5 and got["terr"] < 1.0
+
+
+def test_dog_twin_configs_are_the_probes():
+    """The dog twin's four configurations are its probe's, label for
+    label."""
+    assert load_tool("probe_dog_quality").CONFIGS == dog_probe_configs()
+
+
+def _pair_keypoints(ref: dict, got) -> tuple:
+    """Pair each valid reference keypoint (``ref``: the saved fields) with
+    the twin's (``got``: port Keypoints) nearest in position + orientation
+    (``tests/test_torch_sift.py``'s rule): (paired mask over the
+    reference's rows, the twin's row of each)."""
+    mj, mt = ref["mask"].astype(bool), got.mask.numpy()
+    xj, xt = ref["xy"][mj], got.xy.numpy()[mt]
+    oj, ot = ref["orientation"][mj], got.orientation.numpy()[mt]
+    dpos = np.linalg.norm(xj[:, None] - xt[None], axis=-1)
+    dang = np.abs(np.angle(np.exp(1j * (oj[:, None] - ot[None]))))
+    nn = (dpos + dang).argmin(axis=1)
+    rows = np.arange(len(nn))
+    return (dpos[rows, nn] < 0.5) & (dang[rows, nn] < 1e-2), nn
+
+
+def _match_share(xa, xb, pairs, ya, yb, other) -> float:
+    """Share of the matches ``pairs`` (rows into ``xa``, ``xb``) with a
+    match of ``other`` (rows into ``ya``, ``yb``) within 0.5 px at both
+    ends."""
+    if len(pairs) == 0:
+        return 1.0
+    a, b = xa[pairs[:, 0]], xb[pairs[:, 1]]
+    c, d = ya[other[:, 0]], yb[other[:, 1]]
+    near = ((np.linalg.norm(a[:, None] - c[None], axis=-1) < 0.5)
+            & (np.linalg.norm(b[:, None] - d[None], axis=-1) < 0.5))
+    return float(near.any(axis=1).mean())
+
+
+@pytest.mark.parametrize("case", range(len(QUALITY_CASES)), ids=QUALITY_IDS)
+def test_quality_twin_against_the_probe(case, jax_runs, monkeypatch):
+    """The twin's ``run_with`` against its probe's own code (the dog
+    probe's ``run_with``, the sampling probe's loop body) at one knob
+    setting, on the same 120x160 render and its cv2 warp at capacity 512,
+    the reference without x64. On each image: the keypoint counts within
+    2%, >= 98% of the reference's keypoints paired (within 0.5 px and
+    1e-2 rad, ``tests/test_torch_sift.py``'s pairing), and the paired
+    descriptors >= 99% within 1e-3 and >= 90% within 1e-4 (max abs). The
+    sift test holds 95% within 1e-4 on its fixture; on the warp's
+    interpolated pixels Newton refinement is conditioned worse, and 6-7%
+    of the warped side's descriptors move by 1e-4..1e-3 while every
+    keypoint pairs and the match sets are equal (measured: 92.98-94.13%
+    within 1e-4, >= 99.67% within 1e-3 on either image; a flipped nearest
+    sample moves one by up to 0.02). The matches: counts within 2%, >= 98%
+    of each side's found among the other's (both ends within 0.5 px).
+    The first end-to-end test of nearest histogram sampling and of
+    stride-2 maps through ``compute_sift_keypoints``."""
+    import sara_tpu_torch.features as TF
+
+    jax_runs("quality")
+    d = np.load(jax_runs.quality_path)
+    probe, kw = QUALITY_CASES[case]
+    seen, run = [], TF.compute_sift_keypoints
+
+    def kept(im, p, device=None):
+        seen.append(run(im, p, device=device))
+        return seen[-1]
+
+    monkeypatch.setattr(TF, "compute_sift_keypoints", kept)
+    xa, xb, pairs = load_tool(probe).run_with(
+        d["img"], d["warped"], cap=QUALITY_CAP, device="cpu", **kw)
+    assert len(seen) == 2
+    ys = []
+    for side, got in zip("ab", seen):
+        ref = {f: d[f"{case}_{side}_{f}"] for f in KP_FIELDS}
+        mj = ref["mask"].astype(bool)
+        nj, nt = int(mj.sum()), int(got.count())
+        assert nj > 100 and abs(nj - nt) <= 0.02 * nj, (side, nj, nt)
+        paired, nn = _pair_keypoints(ref, got)
+        assert paired.mean() >= 0.98, (side, paired.mean())
+        dj = ref["descriptors"][mj][paired]
+        dt = got.descriptors.numpy()[got.mask.numpy()][nn[paired]]
+        err = np.abs(dj - dt).max(axis=1)
+        assert (err <= 1e-3).mean() >= 0.99, (side, (err <= 1e-3).mean())
+        assert (err <= 1e-4).mean() >= 0.90, (side, (err <= 1e-4).mean())
+        ys.append(ref["xy"][mj])
+    ref_pairs = d[f"{case}_pairs"]
+    assert len(ref_pairs) > 50
+    assert abs(len(pairs) - len(ref_pairs)) <= 0.02 * len(ref_pairs)
+    assert _match_share(xa, xb, pairs, *ys, ref_pairs) >= 0.98
+    assert _match_share(*ys, ref_pairs, xa, xb, pairs) >= 0.98

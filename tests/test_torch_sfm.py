@@ -514,3 +514,140 @@ def test_vo_gap_witness_bootstrap_classes(tdir, cheiral, matches, expected):
     from vo_gap_witness import bootstrap_class
 
     assert bootstrap_class(tdir, cheiral, matches) == expected
+
+
+# F10's witness (tests/config5_witness.py, ROADMAP §3): config 5's ATE at
+# 32 views (bench_config5_real's cut in phase "tools"), seeds 0-47, on the
+# CPU (the reference without x64, the port with one torch thread), as
+# recorded on an 8-core Intel Xeon.
+F10_REFERENCE_ATE = [
+    0.1435, 0.0785, 0.07, 0.0743, 0.0805, 0.0941, 0.1235, 0.1106, 0.0803,
+    0.0787, 0.0856, 0.0745, 0.133, 0.0744, 0.068, 0.1142, 0.0806, 0.0857,
+    0.0707, 0.076, 0.0885, 0.0746, 0.0593, 0.0792, 0.0969, 0.0702, 0.1978,
+    0.0765, 0.1159, 0.0372, 0.0936, 0.0787, 0.0867, 0.0797, 0.1578, 0.0933,
+    0.0768, 0.06, 0.0821, 0.0599, 0.0572, 0.086, 0.1551, 0.0377, 0.057,
+    0.0583, 0.0813, 0.0945]
+F10_PORT_ATE = [
+    0.0765, 0.0795, 0.0972, 0.0766, 0.0727, 0.0874, 0.0647, 0.0849, 0.0909,
+    0.0774, 0.1148, 0.0735, 0.0777, 0.09, 0.0573, 0.081, 0.0463, 0.0881,
+    0.0947, 0.0956, 0.0842, 0.0823, 0.0702, 0.0768, 0.0407, 0.0756, 0.1172,
+    0.0963, 0.0724, 0.0495, 0.0836, 0.0535, 0.1031, 0.0796, 0.0952, 0.0844,
+    0.1096, 0.0689, 0.0937, 0.0697, 0.1079, 0.0724, 0.0632, 0.0765, 0.0975,
+    0.0842, 0.0874, 0.0637]
+# One BA problem of the port (the card's seed-0 pair stage replayed on the
+# CPU, rotation averaging's output turned by 3e-5 rad, turn 47) solved
+# again by each package's partitioned BA with lambda_init x (1 + j 1e-6),
+# j = -12..12 (``config5_witness.py lambda``): both end above the gate in
+# about a quarter of the runs.
+F10_LAMBDA_REFERENCE_BA_ATE = [
+    0.1162, 0.8286, 0.105, 1.538, 0.0989, 0.0878, 0.0817, 1.0062, 1.3104,
+    1.2988, 0.0959, 0.0901, 0.1157, 0.1017, 0.093, 1.3029, 0.0824, 1.5533,
+    0.0969, 0.1049, 0.0862, 0.1073, 0.0887, 0.093, 0.099]
+F10_LAMBDA_PORT_BA_ATE = [
+    0.1008, 1.3205, 1.573, 0.1004, 1.2624, 0.0983, 0.0938, 1.5722, 0.0875,
+    0.7556, 0.094, 0.0955, 1.1329, 0.0876, 0.0956, 0.0884, 0.1017, 0.0985,
+    0.1052, 0.09, 0.0994, 0.0867, 0.0911, 0.0946, 0.0864]
+F10_RULE_CASES = {
+    # port sample, reference sample, expected decision, (lo, hi) on p
+    "recorded": (F10_PORT_ATE, F10_REFERENCE_ATE, False, (0.5, 1.0)),
+    "tripled": ([3 * a for a in F10_REFERENCE_ATE], F10_REFERENCE_ATE,
+                True, (0.0, 1e-5)),
+    "same": (F10_REFERENCE_ATE, F10_REFERENCE_ATE, False, (0.99, 1.0)),
+    "lambda_jitter": (F10_LAMBDA_PORT_BA_ATE, F10_LAMBDA_REFERENCE_BA_ATE,
+                      False, (0.5, 1.0)),
+}
+
+
+@pytest.mark.parametrize("case", list(F10_RULE_CASES))
+def test_config5_witness_decision_rule(case):
+    """The config-5 witness's decision on recorded numbers
+    (``config5_witness.decide``: F9's rule, p < 0.01 and a median-ratio
+    interval without 1, plus each package's share above the tool gate's
+    0.5, with the Fisher p of those shares). The recorded 48 seeds:
+    medians 0.0803 (port) and 0.0800, no
+    real gap, no run above the gate in either package. The BA problem
+    solved again under lambda jitters: 6 of 25 above the gate with the
+    port's BA, 7 of 25 with the reference's (F6's mechanism)."""
+    from config5_witness import GATE, decide
+
+    port, ref, real, (lo, hi) = F10_RULE_CASES[case]
+    got = decide(port, ref)
+    assert got["real"] is real
+    assert lo <= got["p"] <= hi
+    c_lo, c_hi = got["ratio_ci95"]
+    assert got["real"] == (got["p"] < 0.01 and not c_lo <= 1.0 <= c_hi)
+    assert GATE == 0.5
+    if case == "recorded":
+        assert np.allclose(got["median"], [0.0803, 0.08], atol=1e-12)
+        assert got["share_above_gate"] == [0.0, 0.0]
+        assert got["share_p"] == 1.0
+        assert c_lo < 1.0 < c_hi
+    if case == "lambda_jitter":
+        assert got["share_above_gate"] == [6 / 25, 7 / 25]
+        assert got["share_p"] == 1.0
+
+
+def _f10_digest(kp_hash, edges_hash, rot, ate_avg, ate_pol, ba, ate):
+    return {"kp": {"exact": kp_hash, "hash": "c7438b37394cccc3"},
+            "edges_hash": edges_hash, "rot_mean_deg": rot,
+            "ate_averaged": ate_avg, "ate_polished": ate_pol, "ba": ba,
+            "ate": ate}
+
+
+# Card digests of config 5 (NVIDIA H100 80GB HBM3, 700.00 W), trimmed to
+# the fields the witness compares: the first seed-0 run alone, the run of
+# 30 that ended above the gate, the run after phase "tools"' earlier
+# tools, the run inside the whole chip script, and seed 1.
+F10_CARD = {
+    "alone": _f10_digest("70e895fe278dc58d", "483c8500d2ea36eb", 2.096717,
+                         0.076556, 0.094215, [23562.5, 20386.3], 0.0937),
+    "above_gate": _f10_digest("70e895fe278dc58d", "483c8500d2ea36eb",
+                              2.107085, 0.076556, 0.094224,
+                              [67256.4, 64350.7], 1.5238),
+    "after_tools": _f10_digest("70e895fe278dc58d", "483c8500d2ea36eb",
+                               2.103956, 0.076556, 0.094224,
+                               [24500.8, 21724.3], 0.1031),
+    "script": _f10_digest("70e895fe278dc58d", "483c8500d2ea36eb", 2.099931,
+                          0.076556, 0.094225, [23590.2, 20310.6], 0.0999),
+    "seed1": _f10_digest("70e895fe278dc58d", "2fafedc890f1cb7a", 1.192715,
+                         0.07035, 0.080534, [6875.2, 6571.5], 0.0863),
+}
+
+
+@pytest.mark.parametrize("run, stage", [
+    ("alone", None), ("above_gate", "rot_mean_deg"),
+    ("after_tools", "rot_mean_deg"), ("script", "rot_mean_deg"),
+    ("seed1", "edges_hash")])
+def test_config5_witness_parting_stage(run, stage):
+    """Where each recorded card run parts from the first seed-0 run alone:
+    every seed-0 run, after the preceding tools and inside the whole
+    script too, has the same keypoints (exact hash) and verified edges, so
+    neither detection (state carried over from earlier phases) nor the
+    pair stage's draws differ; the runs part at rotation averaging (the
+    card's atomic sums), and the one above the gate only after it."""
+    from config5_witness import GATE, parting_stage
+
+    assert parting_stage(F10_CARD["alone"], F10_CARD[run]) == stage
+    assert (F10_CARD[run]["ate"] > GATE) == (run == "above_gate")
+
+
+def test_config5_witness_rotation_jitter():
+    """The replay's rotation jitter: k = 0 leaves rotation averaging's
+    output as it is; k > 0 turns each view by a rotation of the given
+    per-axis spread (a mean angle of about 1.6 x 3e-5 rad), the result
+    still orthonormal; seed ranges may be negative (``lambda`` jitters)."""
+    from config5_witness import _seeds, gt_rotations, jittered
+
+    R = gt_rotations().astype(np.float32)
+    assert jittered(R, 0) is R
+    J = jittered(R, 3, 3e-5).astype(np.float64)
+    np.testing.assert_allclose(J @ J.transpose(0, 2, 1),
+                               np.broadcast_to(np.eye(3), J.shape),
+                               atol=1e-6)
+    # Small angles from the skew part (arccos loses them to float32).
+    M = J @ R.astype(np.float64).transpose(0, 2, 1)
+    ang = 0.5 * np.linalg.norm(np.stack([M[:, 2, 1] - M[:, 1, 2],
+                                         M[:, 0, 2] - M[:, 2, 0],
+                                         M[:, 1, 0] - M[:, 0, 1]], 1), axis=1)
+    assert 2e-5 < np.mean(ang) < 8e-5
+    assert _seeds("-2-1") == [-2, -1, 0, 1] and _seeds("5") == [5]

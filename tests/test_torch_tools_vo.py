@@ -5,7 +5,8 @@ unless asked for the CPU.
 Each twin's ``main(argv)`` runs in this process with ``--device cpu`` at a
 small size and is gated by ``chip_smoke.tool_failures``, the gates phase
 "tools" applies on the card. The JAX tool runs in a subprocess (JAX on the
-CPU, no x64, as a user runs it) on the same seed and size; where it reads
+CPU, no x64, as a user runs it) on the same seed and size, started before
+the twin and running beside it (``tool_twins.run_beside``); where it reads
 the reference's photographs (its data directory, missing here), the
 subprocess hands it ``make_room(seed=1)``'s procedural room, the twin's own
 fallback. Compared: the same accepted frames, each ATE within the gate,
@@ -23,7 +24,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tool_twins import (  # noqa: E402
-    PROCEDURAL_ROOM, last_json, run_reference, run_twin)
+    PROCEDURAL_ROOM, last_json, run_beside, run_twin, start_reference)
 from chip_smoke import load_tool, tool_failures  # noqa: E402
 
 
@@ -48,9 +49,9 @@ def test_eval_vo_keypoints_against_the_tool():
     """12 synthetic keypoint frames: every frame accepted on both sides,
     ATE within eval_vo's gate (0.05), map points within 5%."""
     argv = ["--frames", "12"]
-    out = run_twin("eval_vo", argv)
+    out, ref = run_beside(start_reference("eval_vo", argv),
+                          lambda: run_twin("eval_vo", argv))
     assert not tool_failures("eval_vo", out, argv)
-    ref = run_reference("eval_vo", argv)
     (acc, n), = re.findall(r"frames accepted: (\d+)/(\d+)", ref)
     (ate,), (pts,) = (re.findall(p, ref) for p in (
         r"ATE-RMSE before loop closure: ([\d.]+)", r"map points: (\d+)"))
@@ -70,12 +71,14 @@ def test_eval_vo_room_against_the_tool(tmp_path):
     times the reference's own plus 0.02."""
     argv = ["--room", "--loop", "--frames", "40", "--height", "180",
             "--width", "240"]
-    out = run_twin("eval_vo", argv + ["--out", str(tmp_path / "t.json")])
+    proc = start_reference("eval_vo",
+                           argv + ["--out", str(tmp_path / "j.json")],
+                           PROCEDURAL_ROOM)
+    out, stdout = run_beside(proc, lambda: run_twin(
+        "eval_vo", argv + ["--out", str(tmp_path / "t.json")]))
     assert not tool_failures("eval_vo_room", out, argv), out
     assert json.loads((tmp_path / "t.json").read_text())[-1] == out
-    ref = last_json(run_reference(
-        "eval_vo", argv + ["--out", str(tmp_path / "j.json")],
-        PROCEDURAL_ROOM))
+    ref = last_json(stdout)
     assert out["accepted"] == ref["accepted"]
     assert set(ref) <= set(out)
     assert ref["ate_before_closure"] <= 0.10, ref
