@@ -31,6 +31,7 @@ import torch
 from sara_tpu_torch.core import lie
 from sara_tpu_torch.ops.smallmat import batched_inv
 from sara_tpu_torch.utils.host import put
+from sara_tpu_torch.utils.timing import trace
 
 
 class BAProblem(NamedTuple):
@@ -305,70 +306,81 @@ def _solve_lm(p: BAProblem, r, Jc, Jp, Ji, lam, opts: BAOptions,
 
     Returns (dpose (C,6), dpoint (P,3), dintr (Ki,) or None). With
     ``p.intr_free`` set, the shared intrinsics join the reduced camera
-    system as one extra global block."""
+    system as one extra global block. Its spans (``utils/timing.py::
+    trace``): ``ba.blocks`` (the blocks, damping, inverses and right-hand
+    side), ``ba.pcg`` (the whole PCG solve) and ``ba.backsub``."""
     C = p.poses.shape[0]
     P = p.points.shape[0]
     red = allreduce
-    U, V, Wo, bc, bp = _gauss_newton_blocks(p, r, Jc, Jp, red)
-    U_d = _damp(U, lam)
-    V_d = _damp(V, lam)
-    Vinv = batched_inv(V_d)
-    Uinv = batched_inv(U_d)
-    cam_idx, pt_idx = p.cam_idx.long(), p.pt_idx.long()
-    Vb = torch.einsum("pab,pb->pa", Vinv, bp)
+    with trace.span("ba.blocks"):
+        U, V, Wo, bc, bp = _gauss_newton_blocks(p, r, Jc, Jp, red)
+        U_d = _damp(U, lam)
+        V_d = _damp(V, lam)
+        Vinv = batched_inv(V_d)
+        Uinv = batched_inv(U_d)
+        cam_idx, pt_idx = p.cam_idx.long(), p.pt_idx.long()
+        Vb = torch.einsum("pab,pb->pa", Vinv, bp)
 
-    if Ji is None:
-        # Classic path: cameras only in the reduced system.
-        Wv = torch.einsum("oab,ob->oa", Wo, Vb[pt_idx])
-        rhs = bc - red(_segment_sum(Wv, cam_idx, C))
-        matvec = lambda x: _schur_matvec(x, U_d, Vinv, Wo,      # noqa: E731
-                                         cam_idx, pt_idx, C, P, red)
-        dc = _pcg(matvec, rhs, Uinv, opts.cg_iters)
-        WTdc = torch.einsum("oab,oa->ob", Wo, dc[cam_idx])
-        di = None
-    else:
-        Ki = p.intrinsics.shape[0]
-        O = Ji.shape[0]
-        Wi = torch.einsum("oia,oib->oab", Ji, Jp)              # (O, Ki, 3)
-        U_ii = red(torch.einsum("oia,oib->ab", Ji, Ji))
-        U_ci = red(_segment_sum(torch.einsum("oia,oib->oab", Jc, Ji),
-                                cam_idx, C))                    # (C, 6, Ki)
-        bi = -red(torch.einsum("oia,oi->a", Ji, r))
-        U_ii_d = _damp(U_ii, lam)
-        U_ii_inv = torch.linalg.inv_ex(U_ii_d)[0]
+        if Ji is None:
+            # Classic path: cameras only in the reduced system.
+            Wv = torch.einsum("oab,ob->oa", Wo, Vb[pt_idx])
+            rhs = bc - red(_segment_sum(Wv, cam_idx, C))
+        else:
+            Ki = p.intrinsics.shape[0]
+            O = Ji.shape[0]
+            Wi = torch.einsum("oia,oib->oab", Ji, Jp)          # (O, Ki, 3)
+            U_ii = red(torch.einsum("oia,oib->ab", Ji, Ji))
+            U_ci = red(_segment_sum(torch.einsum("oia,oib->oab", Jc, Ji),
+                                    cam_idx, C))                # (C, 6, Ki)
+            bi = -red(torch.einsum("oia,oi->a", Ji, r))
+            U_ii_d = _damp(U_ii, lam)
+            U_ii_inv = torch.linalg.inv_ex(U_ii_d)[0]
 
-        rhs_c = bc - red(_segment_sum(
-            torch.einsum("oab,ob->oa", Wo, Vb[pt_idx]), cam_idx, C))
-        rhs_i = bi - red(torch.einsum("oab,ob->a", Wi, Vb[pt_idx]))
+            rhs_c = bc - red(_segment_sum(
+                torch.einsum("oab,ob->oa", Wo, Vb[pt_idx]), cam_idx, C))
+            rhs_i = bi - red(torch.einsum("oab,ob->a", Wi, Vb[pt_idx]))
 
-        def matvec(x):
-            xc, xi = x
-            tp = (torch.einsum("oab,oa->ob", Wo, xc[cam_idx])
-                  + torch.einsum("oab,oa->ob", Wi, xi.expand(O, Ki)))
-            yp = torch.einsum("pab,pb->pa", Vinv,
-                              red(_segment_sum(tp, pt_idx, P)))
-            out_c = (torch.einsum("cab,cb->ca", U_d, xc)
-                     + torch.einsum("cak,k->ca", U_ci, xi)
-                     - red(_segment_sum(
-                         torch.einsum("oab,ob->oa", Wo, yp[pt_idx]),
-                         cam_idx, C)))
-            out_i = (torch.einsum("cak,ca->k", U_ci, xc)
-                     + U_ii_d @ xi
-                     - red(torch.einsum("oab,ob->a", Wi, yp[pt_idx])))
-            return out_c, out_i
+    with trace.span("ba.pcg"):
+        if Ji is None:
+            matvec = lambda x: _schur_matvec(                   # noqa: E731
+                x, U_d, Vinv, Wo, cam_idx, pt_idx, C, P, red)
+            dc = _pcg(matvec, rhs, Uinv, opts.cg_iters)
+            di = None
+        else:
+            def matvec(x):
+                xc, xi = x
+                tp = (torch.einsum("oab,oa->ob", Wo, xc[cam_idx])
+                      + torch.einsum("oab,oa->ob", Wi, xi.expand(O, Ki)))
+                yp = torch.einsum("pab,pb->pa", Vinv,
+                                  red(_segment_sum(tp, pt_idx, P)))
+                out_c = (torch.einsum("cab,cb->ca", U_d, xc)
+                         + torch.einsum("cak,k->ca", U_ci, xi)
+                         - red(_segment_sum(
+                             torch.einsum("oab,ob->oa", Wo, yp[pt_idx]),
+                             cam_idx, C)))
+                out_i = (torch.einsum("cak,ca->k", U_ci, xc)
+                         + U_ii_d @ xi
+                         - red(torch.einsum("oab,ob->a", Wi, yp[pt_idx])))
+                return out_c, out_i
 
-        precond = lambda v: (torch.einsum("cab,cb->ca", Uinv, v[0]),  # noqa: E731
-                             U_ii_inv @ v[1])
-        dc, di = _pcg_tree(matvec, (rhs_c, rhs_i), precond, opts.cg_iters)
-        di = torch.where(p.intr_free, di, torch.zeros_like(di))
-        WTdc = (torch.einsum("oab,oa->ob", Wo, dc[cam_idx])
-                + torch.einsum("oab,oa->ob", Wi, di.expand(O, Ki)))
+            precond = lambda v: (                               # noqa: E731
+                torch.einsum("cab,cb->ca", Uinv, v[0]), U_ii_inv @ v[1])
+            dc, di = _pcg_tree(matvec, (rhs_c, rhs_i), precond,
+                               opts.cg_iters)
 
-    # Back-substitute points: dp = V^-1 (bp - W^T dc).
-    WTdc_p = red(_segment_sum(WTdc, pt_idx, P))
-    dp = torch.einsum("pab,pb->pa", Vinv, bp - WTdc_p)
-    dc = dc * _pose_free(p)
-    dp = torch.where(p.point_fixed[:, None], torch.zeros_like(dp), dp)
+    with trace.span("ba.backsub"):
+        if Ji is None:
+            WTdc = torch.einsum("oab,oa->ob", Wo, dc[cam_idx])
+        else:
+            di = torch.where(p.intr_free, di, torch.zeros_like(di))
+            WTdc = (torch.einsum("oab,oa->ob", Wo, dc[cam_idx])
+                    + torch.einsum("oab,oa->ob", Wi, di.expand(O, Ki)))
+
+        # Back-substitute points: dp = V^-1 (bp - W^T dc).
+        WTdc_p = red(_segment_sum(WTdc, pt_idx, P))
+        dp = torch.einsum("pab,pb->pa", Vinv, bp - WTdc_p)
+        dc = dc * _pose_free(p)
+        dp = torch.where(p.point_fixed[:, None], torch.zeros_like(dp), dp)
     return dc, dp, di
 
 
@@ -422,40 +434,51 @@ def _lm_cg(p: BAProblem, opts: BAOptions, allreduce=_identity):
     device; ``parallel/dist_ba.py`` passes a ``torch.distributed``
     all-reduce, with cameras, points and intrinsics replicated on every
     rank): the cost, the segment sums of the normal equations and those
-    inside each CG matvec, so every rank takes the same steps."""
+    inside each CG matvec, so every rank takes the same steps.
+
+    Under a ``torch.profiler`` session it records the span ``ba.lm``
+    (units: iterations) and per iteration ``ba.jacobians``, the spans of
+    :func:`_solve_lm` and ``ba.cost`` (the candidate's cost and the accept
+    step), with the counters ``ba.iterations`` and ``ba.accepted``, see
+    ``utils/timing.py::trace``."""
     fast = p.intr_free is None and p.intrinsics.shape[0] == 4
     delta, cutoff = opts.huber_delta, opts.outlier_cutoff
     prob = p
-    cost = allreduce(ba_cost(p, delta, cutoff))
-    cost0 = cost
-    lam = torch.full((), opts.lambda_init, dtype=p.poses.dtype,
-                     device=p.poses.device)
-    costs = []
-    for _ in range(opts.max_iters):
-        if fast:
-            r, Jc, Jp = _jacobians_closed_form(prob, delta, cutoff)
-            Ji = None
-        else:
-            r, Jc, Jp, Ji = _jacobians(prob, delta, cutoff)
-        dc, dp, di = _solve_lm(prob, r, Jc, Jp, Ji, lam, opts, allreduce)
-        cand = prob._replace(poses=prob.poses + dc,
-                             points=prob.points + dp)
-        if di is not None:
-            cand = cand._replace(intrinsics=prob.intrinsics + di)
-        new_cost = allreduce(ba_cost(cand, delta, cutoff))
-        accept = new_cost < cost
-        prob = prob._replace(
-            poses=torch.where(accept, cand.poses, prob.poses),
-            points=torch.where(accept, cand.points, prob.points),
-            intrinsics=torch.where(accept, cand.intrinsics,
-                                   prob.intrinsics))
-        lam = torch.where(accept,
-                          torch.clamp(lam * opts.lambda_down,
-                                      min=opts.lambda_min),
-                          torch.clamp(lam * opts.lambda_up,
-                                      max=opts.lambda_max))
-        cost = torch.where(accept, new_cost, cost)
-        costs.append(cost)
+    with trace.span("ba.lm", opts.max_iters):
+        trace.count("ba.iterations", opts.max_iters)
+        cost = allreduce(ba_cost(p, delta, cutoff))
+        cost0 = cost
+        lam = torch.full((), opts.lambda_init, dtype=p.poses.dtype,
+                         device=p.poses.device)
+        costs = []
+        for _ in range(opts.max_iters):
+            with trace.span("ba.jacobians"):
+                if fast:
+                    r, Jc, Jp = _jacobians_closed_form(prob, delta, cutoff)
+                    Ji = None
+                else:
+                    r, Jc, Jp, Ji = _jacobians(prob, delta, cutoff)
+            dc, dp, di = _solve_lm(prob, r, Jc, Jp, Ji, lam, opts, allreduce)
+            with trace.span("ba.cost"):
+                cand = prob._replace(poses=prob.poses + dc,
+                                     points=prob.points + dp)
+                if di is not None:
+                    cand = cand._replace(intrinsics=prob.intrinsics + di)
+                new_cost = allreduce(ba_cost(cand, delta, cutoff))
+                accept = new_cost < cost
+                trace.count("ba.accepted", accept)
+                prob = prob._replace(
+                    poses=torch.where(accept, cand.poses, prob.poses),
+                    points=torch.where(accept, cand.points, prob.points),
+                    intrinsics=torch.where(accept, cand.intrinsics,
+                                           prob.intrinsics))
+                lam = torch.where(accept,
+                                  torch.clamp(lam * opts.lambda_down,
+                                              min=opts.lambda_min),
+                                  torch.clamp(lam * opts.lambda_up,
+                                              max=opts.lambda_max))
+                cost = torch.where(accept, new_cost, cost)
+            costs.append(cost)
     info = {"initial_cost": cost0, "final_cost": cost,
             "costs": (torch.stack(costs) if costs
                       else p.poses.new_zeros((0,))),

@@ -33,6 +33,7 @@ from sara_tpu_torch.image.differential import gradient
 from sara_tpu_torch.image.pyramid import (PyramidParams, dog_pyramid,
                                           gaussian_pyramid)
 from sara_tpu_torch.ops.topk import chunked_top_k
+from sara_tpu_torch.utils.timing import trace
 
 
 @dataclass(frozen=True)
@@ -72,46 +73,52 @@ def _process_octave(gauss: torch.Tensor, dog: torch.Tensor,
     leading frame dims; every step keeps them and works per frame (the
     detector's top-k, the compaction's sort), and the returned (..., K2)
     fields carry them too."""
-    det = detect_dog_octave(dog, params.dog)
-    # The top Gaussian only feeds the last DoG level; drop it.
-    gx, gy = gradient(gauss[..., :-1, :, :])
-    cdt = torch.bfloat16 if params.low_precision else None
-    ds = (params.orientation_downsample if params.orientation_downsample > 0
-          else (2 if cdt is not None else 1))
+    with trace.span("sift.detect"):
+        det = detect_dog_octave(dog, params.dog)
+    with trace.span("sift.orient"):
+        # The top Gaussian only feeds the last DoG level; drop it.
+        gx, gy = gradient(gauss[..., :-1, :, :])
+        cdt = torch.bfloat16 if params.low_precision else None
+        ds = (params.orientation_downsample
+              if params.orientation_downsample > 0
+              else (2 if cdt is not None else 1))
 
-    maps = orientation_maps(gx, gy, sigmas[:-1], compute_dtype=cdt,
-                            downsample=ds)
-    hist = lowe_smooth(sample_orientation_maps(
-        maps, det["x"], det["y"], det["s"], downsample=ds,
-        bilinear=not params.hist_sample_nearest))
-    theta, tvalid = find_orientation_peaks(
-        hist, max_peaks=params.max_orientations)
+        maps = orientation_maps(gx, gy, sigmas[:-1], compute_dtype=cdt,
+                                downsample=ds)
+        hist = lowe_smooth(sample_orientation_maps(
+            maps, det["x"], det["y"], det["s"], downsample=ds,
+            bilinear=not params.hist_sample_nearest))
+        theta, tvalid = find_orientation_peaks(
+            hist, max_peaks=params.max_orientations)
 
-    # Replicate each keypoint per orientation peak.
-    K = det["x"].shape[-1]
-    P = params.max_orientations
-    x, y, s, val, mask = (det[k].repeat_interleave(P, dim=-1)
-                          for k in ("x", "y", "s", "value", "mask"))
-    mask = mask & tvalid.flatten(-2)
-    th = theta.flatten(-2)
+        # Replicate each keypoint per orientation peak.
+        K = det["x"].shape[-1]
+        P = params.max_orientations
+        x, y, s, val, mask = (det[k].repeat_interleave(P, dim=-1)
+                              for k in ("x", "y", "s", "value", "mask"))
+        mask = mask & tvalid.flatten(-2)
+        th = theta.flatten(-2)
 
-    # Compact valid slots to the front and describe K + K//4 of them
-    # (second orientations beyond that are dropped, weakest index last).
-    K2 = K + K // 4
-    order = torch.argsort((~mask).to(torch.int32), dim=-1,
-                          stable=True)[..., :K2]
-    x, y, s, val, th, mask = (a.gather(-1, order)
-                              for a in (x, y, s, val, th, mask))
+    with trace.span("sift.compact"):
+        # Compact valid slots to the front and describe K + K//4 of them
+        # (second orientations beyond that are dropped, weakest index
+        # last).
+        K2 = K + K // 4
+        order = torch.argsort((~mask).to(torch.int32), dim=-1,
+                              stable=True)[..., :K2]
+        x, y, s, val, th, mask = (a.gather(-1, order)
+                                  for a in (x, y, s, val, th, mask))
 
-    if params.descriptor_field:
-        desc = sift_descriptors_field(
-            maps, x, y, s, th, sigmas[:-1], downsample=ds,
-            bilinear=not params.desc_sample_nearest,
-            sampler=params.desc_sampler)
-    else:
-        desc = sift_descriptors(gx, gy, x, y, s, th, sigmas[:-1],
-                                bilinear=params.descriptor_bilinear,
-                                compute_dtype=cdt)
+    with trace.span("sift.describe"):
+        if params.descriptor_field:
+            desc = sift_descriptors_field(
+                maps, x, y, s, th, sigmas[:-1], downsample=ds,
+                bilinear=not params.desc_sample_nearest,
+                sampler=params.desc_sampler)
+        else:
+            desc = sift_descriptors(gx, gy, x, y, s, th, sigmas[:-1],
+                                    bilinear=params.descriptor_bilinear,
+                                    compute_dtype=cdt)
     return {"x": x, "y": y, "s": s, "value": val, "theta": th,
             "desc": desc, "mask": mask}
 
@@ -133,16 +140,33 @@ def _compute_sift_batch(images, params: SIFTParams = SIFTParams(),
     the frame axis first: xy (B, total_capacity, 2), ..., mask (B,
     total_capacity); frame b equals what :func:`compute_sift_keypoints`
     gives for ``images[b]``.
+
+    Under a ``torch.profiler`` session it records the span ``sift`` (units:
+    frames) and within it ``sift.pyramid``, per octave ``sift.detect``,
+    ``sift.orient``, ``sift.compact`` and ``sift.describe``, then
+    ``sift.merge``; and the counters ``sift.desc_rows`` (rows described),
+    ``sift.valid.o<i>`` (octave i's valid rows after compaction) and
+    ``sift.kept`` (the returned mask), see ``utils/timing.py::trace``.
     """
     dev = resolve_device(device)
     images = torch.as_tensor(images).to(dev, torch.float32)
     if images.dim() != 3:
         raise ValueError(f"images must be (B, H, W), got "
                          f"{tuple(images.shape)}")
-    B = images.shape[0]
+    with trace.span("sift", images.shape[0]):
+        kp = _sift_batch(images, params, dev)
+        trace.count("sift.kept", kp.mask)
+    return kp
 
-    gp = gaussian_pyramid(images, params.pyramid)
-    dg = dog_pyramid(gp)
+
+def _sift_batch(images: torch.Tensor, params: SIFTParams,
+                dev: torch.device) -> Keypoints:
+    """The body of :func:`_compute_sift_batch` on a (B, H, W) float32
+    stack on ``dev``."""
+    B = images.shape[0]
+    with trace.span("sift.pyramid", B):
+        gp = gaussian_pyramid(images, params.pyramid)
+        dg = dog_pyramid(gp)
 
     chunks = []
     for oct_idx, (gauss, dog) in enumerate(zip(gp.octaves, dg.octaves)):
@@ -153,6 +177,8 @@ def _compute_sift_batch(images, params: SIFTParams = SIFTParams(),
         oct_params = dataclasses.replace(params, dog=dataclasses.replace(
             params.dog, capacity=cap))
         out = _process_octave(gauss, dog, oct_params, gp.sigmas)
+        trace.count("sift.desc_rows", out["desc"].shape[:-1].numel())
+        trace.count(f"sift.valid.o{oct_idx}", out["mask"])
         scale_factor = gp.octave_scales[oct_idx]
         sigma = params.pyramid.sigma_initial * torch.pow(
             torch.full((), params.pyramid.k, dtype=torch.float32, device=dev),
@@ -166,21 +192,23 @@ def _compute_sift_batch(images, params: SIFTParams = SIFTParams(),
             mask=out["mask"],
         ))
 
-    merged = Keypoints(*(torch.cat(parts, dim=1) for parts in zip(*chunks)))
+    with trace.span("sift.merge"):
+        merged = Keypoints(*(torch.cat(parts, dim=1)
+                             for parts in zip(*chunks)))
 
-    # Keep the strongest total_capacity responses of each frame (masked
-    # rows last).
-    cap = params.total_capacity
-    if merged.capacity <= cap:
-        pad = cap - merged.capacity
-        return Keypoints(*(torch.cat(
-            [f, f.new_zeros((B, pad) + f.shape[2:])], dim=1)
-            for f in merged))
-    score = torch.where(merged.mask, merged.response.abs(),
-                        torch.full_like(merged.response, float("-inf")))
-    _, idx = chunked_top_k(score, cap)
-    frames = torch.arange(B, device=dev)[:, None]
-    return Keypoints(*(f[frames, idx] for f in merged))
+        # Keep the strongest total_capacity responses of each frame
+        # (masked rows last).
+        cap = params.total_capacity
+        if merged.capacity <= cap:
+            pad = cap - merged.capacity
+            return Keypoints(*(torch.cat(
+                [f, f.new_zeros((B, pad) + f.shape[2:])], dim=1)
+                for f in merged))
+        score = torch.where(merged.mask, merged.response.abs(),
+                            torch.full_like(merged.response, float("-inf")))
+        _, idx = chunked_top_k(score, cap)
+        frames = torch.arange(B, device=dev)[:, None]
+        return Keypoints(*(f[frames, idx] for f in merged))
 
 
 def compute_sift_keypoints(image, params: SIFTParams = SIFTParams(),

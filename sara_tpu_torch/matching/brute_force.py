@@ -18,6 +18,7 @@ import torch
 
 from sara_tpu_torch import resolve_device
 from sara_tpu_torch.core.types import Keypoints, Matches
+from sara_tpu_torch.utils.timing import trace
 
 
 @dataclass(frozen=True)
@@ -54,17 +55,27 @@ def _top2_min(d2: torch.Tensor):
 def _match_sets(da, ma, db, mb, ratio: float, mutual: bool = True):
     """Mutual ratio-test matching of descriptor sets da (..., Na, D) with
     masks ma (..., Na) against db, mb; leading dims are independent pairs.
-    Returns (j (..., Na) int64, ok (..., Na) bool, d1 (..., Na))."""
-    d2 = _pairwise_sqdist(da, db)
-    d2 = torch.where(ma[..., :, None] & mb[..., None, :], d2,
-                     torch.full_like(d2, float("inf")))
-    d1, d2nd, j = _top2_min(d2)
-    # Lowe ratio on squared distances: d1 < ratio^2 * d2nd.
-    ok = (d1 < (ratio ** 2) * d2nd) & ma & torch.isfinite(d1)
-    if mutual:
-        jT = torch.argmin(d2, dim=-2)  # best a-index for each b-index
-        rows = torch.arange(da.shape[-2], device=da.device)
-        ok = ok & (torch.gather(jT, -1, j) == rows)
+    Returns (j (..., Na) int64, ok (..., Na) bool, d1 (..., Na)).
+
+    Under a ``torch.profiler`` session it records the span ``match``
+    (units: pairs) and the counters ``match.cells`` (distance cells
+    computed, Na·Nb per pair) and ``match.cells_valid`` (those between
+    two kept keypoints), see ``utils/timing.py::trace``."""
+    pairs = ma.shape[:-1].numel()
+    with trace.span("match", pairs):
+        trace.count("match.cells", pairs * ma.shape[-1] * mb.shape[-1])
+        trace.count("match.cells_valid",
+                    lambda: ma.sum(-1) * mb.sum(-1))
+        d2 = _pairwise_sqdist(da, db)
+        d2 = torch.where(ma[..., :, None] & mb[..., None, :], d2,
+                         torch.full_like(d2, float("inf")))
+        d1, d2nd, j = _top2_min(d2)
+        # Lowe ratio on squared distances: d1 < ratio^2 * d2nd.
+        ok = (d1 < (ratio ** 2) * d2nd) & ma & torch.isfinite(d1)
+        if mutual:
+            jT = torch.argmin(d2, dim=-2)  # best a-index for each b-index
+            rows = torch.arange(da.shape[-2], device=da.device)
+            ok = ok & (torch.gather(jT, -1, j) == rows)
     return j, ok, d1
 
 

@@ -88,6 +88,17 @@ def numbers(pattern, text):
 
 
 @pytest.mark.parametrize("name", list(DEMOS))
+def test_demo_twin_needs_a_card_or_cpu(name, tmp_path):
+    """Without ``--cpu`` a twin runs on the card, and raises without one
+    before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (phase demos runs the twins "
+                    "on it)")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_demo(name).main(argv_of(name, tmp_path))
+
+
+@pytest.mark.parametrize("name", list(DEMOS))
 def test_demo_twin(name, tmp_path):
     out, printed = run_twin(name, argv_of(name, tmp_path / "twin"))
     assert not demo_failures(name, out, WIDTH, SFM_VIEWS), printed
@@ -119,14 +130,3 @@ def test_demo_twin(name, tmp_path):
         (ate_t,), (ate_j,) = (numbers(r"ATE vs ground truth: ([\d.]+)", text)
                               for text in (printed, ref))
         assert abs(ate_t - ate_j) <= 0.02
-
-
-@pytest.mark.parametrize("name", list(DEMOS))
-def test_demo_twin_needs_a_card_or_cpu(name, tmp_path):
-    """Without ``--cpu`` a twin runs on the card, and raises without one
-    before any work."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present (phase demos runs the twins "
-                    "on it)")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        load_demo(name).main(argv_of(name, tmp_path))

@@ -54,7 +54,7 @@ for _p in (ROOT, ROOT / "tests", ROOT / "scripts"):
 
 from chip_smoke import PROBE_RUNS, load_tool, stages_in_order  # noqa: E402
 from tool_twins import (  # noqa: E402,F401
-    NICE, finish, one_torch_thread, probe_function, start, start_jax,
+    finish, one_torch_thread, probe_function, start, start_jax,
     start_reference)
 
 HW = "96x128"
@@ -128,8 +128,10 @@ print("RESULT " + json.dumps(printed, default=str))
 """
 
 # The JAX subprocesses run on one thread each: six of them compile beside
-# the twins' three interpreters. All nine run ``tool_twins.NICE`` steps
-# below the suite's workers, on the cores those leave idle.
+# the twins' three interpreters. All nine run at the workers' own
+# priority: a lower one left them waiting for idle cores that the suite's
+# six workers seldom leave, and the twins' tiny runs (about 150 CPU
+# seconds in all) then outlasted the ``printed`` fixture's 600 s.
 ONE_THREAD = ('import os; os.environ["XLA_FLAGS"] = '
               '"--xla_cpu_multi_thread_eigen=false '
               'intra_op_parallelism_threads=1"\n')
@@ -294,15 +296,15 @@ def jax_runs(tmp_path_factory):
     procs = {
         "sfm": start_reference("probe_sfm_ate_stages", ["--views"]
                                + SFM_VIEWS_REF, ONE_THREAD, cpu_flag=False,
-                               x64=True, nice=NICE),
+                               x64=True),
         "city": start_jax(JAX_CITY.format(path=str(city), keys=CITY_KEYS,
-                                          views=CITY_VIEWS), nice=NICE),
-        "capacity": start_jax(prelude + JAX_CAPACITY, nice=NICE),
+                                          views=CITY_VIEWS)),
+        "capacity": start_jax(prelude + JAX_CAPACITY),
         "quality": start_jax(JAX_QUALITY.format(
             hw=QUALITY_HW, cases=QUALITY_CASES, cap=QUALITY_CAP,
-            fields=KP_FIELDS, path=str(quality)), nice=NICE),
+            fields=KP_FIELDS, path=str(quality))),
         **{name: start_jax(prelude + JAX_STAGES.format(
-            probe=probe, stages=st, merge=merge), nice=NICE)
+            probe=probe, stages=st, merge=merge))
            for name, (probe, st, merge) in stages.items()},
     }
     outs = {}
@@ -328,7 +330,7 @@ def printed(jax_runs):
     interpreters (while the JAX runs go on)."""
     procs = [start([sys.executable, "-c", RUNNER.format(
         root=str(ROOT), tiny={n: TINY[n] for n in group},
-        forbidden=FORBIDDEN, zeroed=group == ZEROED_GROUP)], nice=NICE)
+        forbidden=FORBIDDEN, zeroed=group == ZEROED_GROUP)])
         for group in GROUPS]
     out = {"imported": [], "results": {}}
     for proc in procs:

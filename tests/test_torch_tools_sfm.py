@@ -92,27 +92,6 @@ def test_bench_ba_scipy_anchor_and_mesh(monkeypatch):
         1e-5 * out["tiny"]["dense"]["final_cost"]
 
 
-def test_bench_sfm_scale_against_the_tool():
-    """16 ring views: the same verified edges as the tool, the ATE within
-    0.02 of the tool's, the same keys on stdout."""
-    argv = ["--views", "16"]
-    capture = ("import sara_tpu.sfm.global_sfm as g; _run = g.run_global_sfm\n"
-               "def _rec(*a, **k):\n"
-               "    o = _run(*a, **k)\n"
-               "    print('EDGES', [[int(i) for i in e] for e in o['edges']])\n"
-               "    return o\n"
-               "g.run_global_sfm = _rec")
-    out, stdout = run_beside(start_reference("bench_sfm_scale", argv,
-                                             capture),
-                             lambda: run_twin("bench_sfm_scale", argv))
-    assert not tool_failures("bench_sfm_scale", out, argv), out
-    edges = json.loads(re.search(r"EDGES (\[.*\])", stdout).group(1))
-    ref = last_json(stdout)
-    assert sorted(map(tuple, edges)) == sorted(out["edges"])
-    assert abs(out["ate"] - ref["ate"]) <= 0.02
-    assert set(ref) <= set(out)
-
-
 def test_city_scene_equals_the_tools():
     """64 views of the city sweep: every keypoint array of every view, the
     centres, K and the proximity pairs equal to the tool's scene."""
@@ -130,40 +109,6 @@ def test_city_scene_equals_the_tools():
     assert twin.proximity_pairs(centers) == jscene.proximity_pairs(jcenters)
     np.testing.assert_array_equal(twin.gt_rotations(64),
                                   jscene.gt_rotations(64))
-
-
-def test_bench_city_scale_twin(tmp_path):
-    """The twin end to end on 64 views (16 blocks, 3 sweeps): views - 1
-    edges, ATE < 2.0 (phase "city"'s gate), the partitioned BA lowering the
-    cost; the artifact holds the tool's keys."""
-    argv = ["--views", "64", "--json", str(tmp_path / "t.json")]
-    out = run_twin("bench_city_scale", argv)
-    assert not tool_failures("bench_city_scale", out, argv), out
-    art = json.loads((tmp_path / "t.json").read_text())
-    assert {"config", "views", "pairs", "ate", "total_s", "stage_times_s",
-            "points", "edges", "ba_blocks", "ba_sweeps", "mesh_devices",
-            "projected_2x4_efficiency", "note"} == set(art)
-
-
-def test_bench_config5_real_against_the_tool(tmp_path):
-    """12 views of the room loop through the real frontend and the
-    partitioned BA (4 blocks), the tool with ``--mesh 1``: the same pairs
-    and edges, the artifact's keys, the mesh table at n = 1, and the ATE
-    within 1.25 times the tool's own plus 0.02 (a 12-view loop is coarse:
-    the tool ends at ATE 0.3663 here, 0.2087 at 24 views; CPU runs)."""
-    argv = ["--views", "12", "--ba-blocks", "4", "--mesh", "1"]
-    proc = start_reference(
-        "bench_config5_real", argv + ["--json", str(tmp_path / "j.json")],
-        PROCEDURAL_ROOM, cpu_flag=False)
-    out, _ = run_beside(proc, lambda: run_twin(
-        "bench_config5_real", argv + ["--json", str(tmp_path / "t.json")]))
-    assert not tool_failures("bench_config5_real", out, argv), out
-    assert [r["mesh_devices"] for r in out["partitioned_ba_scaling"]] == [1]
-    ref = json.loads((tmp_path / "j.json").read_text())
-    assert set(ref) == set(out)
-    assert out["pairs"] == ref["pairs"]
-    assert out["edges"] == ref["edges"]
-    assert out["ate"] <= 1.25 * ref["ate"] + 0.02, (out["ate"], ref["ate"])
 
 
 def test_mc_fivepoint_against_the_tool():
@@ -225,3 +170,58 @@ def test_mc_fivepoint_against_the_tool():
     for kind in ("generic", "near_planar"):
         assert abs(rate[kind] - rate_ref[kind]) <= 0.01, (rate, rate_ref)
     assert abs(rate["small_baseline"] - rate_ref["small_baseline"]) <= 0.1
+
+
+def test_bench_sfm_scale_against_the_tool():
+    """16 ring views: the same verified edges as the tool, the ATE within
+    0.02 of the tool's, the same keys on stdout."""
+    argv = ["--views", "16"]
+    capture = ("import sara_tpu.sfm.global_sfm as g; _run = g.run_global_sfm\n"
+               "def _rec(*a, **k):\n"
+               "    o = _run(*a, **k)\n"
+               "    print('EDGES', [[int(i) for i in e] for e in o['edges']])\n"
+               "    return o\n"
+               "g.run_global_sfm = _rec")
+    out, stdout = run_beside(start_reference("bench_sfm_scale", argv,
+                                             capture),
+                             lambda: run_twin("bench_sfm_scale", argv))
+    assert not tool_failures("bench_sfm_scale", out, argv), out
+    edges = json.loads(re.search(r"EDGES (\[.*\])", stdout).group(1))
+    ref = last_json(stdout)
+    assert sorted(map(tuple, edges)) == sorted(out["edges"])
+    assert abs(out["ate"] - ref["ate"]) <= 0.02
+    assert set(ref) <= set(out)
+
+
+def test_bench_config5_real_against_the_tool(tmp_path):
+    """12 views of the room loop through the real frontend and the
+    partitioned BA (4 blocks), the tool with ``--mesh 1``: the same pairs
+    and edges, the artifact's keys, the mesh table at n = 1, and the ATE
+    within 1.25 times the tool's own plus 0.02 (a 12-view loop is coarse:
+    the tool ends at ATE 0.3663 here, 0.2087 at 24 views; CPU runs)."""
+    argv = ["--views", "12", "--ba-blocks", "4", "--mesh", "1"]
+    proc = start_reference(
+        "bench_config5_real", argv + ["--json", str(tmp_path / "j.json")],
+        PROCEDURAL_ROOM, cpu_flag=False)
+    out, _ = run_beside(proc, lambda: run_twin(
+        "bench_config5_real", argv + ["--json", str(tmp_path / "t.json")]))
+    assert not tool_failures("bench_config5_real", out, argv), out
+    assert [r["mesh_devices"] for r in out["partitioned_ba_scaling"]] == [1]
+    ref = json.loads((tmp_path / "j.json").read_text())
+    assert set(ref) == set(out)
+    assert out["pairs"] == ref["pairs"]
+    assert out["edges"] == ref["edges"]
+    assert out["ate"] <= 1.25 * ref["ate"] + 0.02, (out["ate"], ref["ate"])
+
+
+def test_bench_city_scale_twin(tmp_path):
+    """The twin end to end on 64 views (16 blocks, 3 sweeps): views - 1
+    edges, ATE < 2.0 (phase "city"'s gate), the partitioned BA lowering the
+    cost; the artifact holds the tool's keys."""
+    argv = ["--views", "64", "--json", str(tmp_path / "t.json")]
+    out = run_twin("bench_city_scale", argv)
+    assert not tool_failures("bench_city_scale", out, argv), out
+    art = json.loads((tmp_path / "t.json").read_text())
+    assert {"config", "views", "pairs", "ate", "total_s", "stage_times_s",
+            "points", "edges", "ba_blocks", "ba_sweeps", "mesh_devices",
+            "projected_2x4_efficiency", "note"} == set(art)

@@ -45,6 +45,22 @@ def one_torch_thread():
 
 
 
+TWINS = ["eval_vo", "bench_vo_frontend", "bench_ba", "bench_sfm_scale",
+         "bench_city_scale", "bench_config5_real", "eval_real_images",
+         "mc_fivepoint", "eval_vo_video"]
+
+
+@pytest.mark.parametrize("tool", TWINS)
+def test_tool_twin_needs_a_card_or_cpu(tool):
+    """Without ``--device`` a twin runs on the card, and raises without one
+    before any work."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present (phase tools runs the twins "
+                    "on it)")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_tool(tool).main([])
+
+
 def test_eval_vo_keypoints_against_the_tool():
     """12 synthetic keypoint frames: every frame accepted on both sides,
     ATE within eval_vo's gate (0.05), map points within 5%."""
@@ -100,19 +116,3 @@ def test_eval_vo_pipelined_room():
     out = run_twin("eval_vo", argv)
     assert out["pipelined"]
     assert not tool_failures("eval_vo_room", out, argv), out
-
-
-TWINS = ["eval_vo", "bench_vo_frontend", "bench_ba", "bench_sfm_scale",
-         "bench_city_scale", "bench_config5_real", "eval_real_images",
-         "mc_fivepoint", "eval_vo_video"]
-
-
-@pytest.mark.parametrize("tool", TWINS)
-def test_tool_twin_needs_a_card_or_cpu(tool):
-    """Without ``--device`` a twin runs on the card, and raises without one
-    before any work."""
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present (phase tools runs the twins "
-                    "on it)")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        load_tool(tool).main([])

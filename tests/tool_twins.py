@@ -17,11 +17,6 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 from chip_smoke import load_tool  # noqa: E402
 
-# Helper subprocesses that run beside a test (a JAX tool beside its twin)
-# start this many steps below the suite's workers, so that they take the
-# cores the six workers leave idle and do not slow the other modules.
-NICE = 10
-
 # The reference's tools read its photographs (its data directory); they
 # are handed the twins' own fallback, make_room(seed=1)'s procedural room.
 PROCEDURAL_ROOM = ("import eval_real_images, render3d; "
@@ -144,29 +139,24 @@ def run_reference(tool: str, argv: list, patch: str = "",
 
 
 def start_reference(tool: str, argv: list, patch: str = "",
-                    cpu_flag: bool = True, x64: bool = False,
-                    nice: int = 0) -> subprocess.Popen:
+                    cpu_flag: bool = True,
+                    x64: bool = False) -> subprocess.Popen:
     """``run_reference``'s subprocess (with x64 where asked), started and
     left running, so that several run at once; ``finish`` waits for
     it."""
-    return start_jax(_reference_code(tool, argv, patch, cpu_flag), x64,
-                     nice)
+    return start_jax(_reference_code(tool, argv, patch, cpu_flag), x64)
 
 
-def start_jax(code: str, x64: bool = False,
-              nice: int = 0) -> subprocess.Popen:
+def start_jax(code: str, x64: bool = False) -> subprocess.Popen:
     """``code`` in a fresh interpreter (``_jax_command``), started and left
-    running, ``nice`` steps below this process's priority (helpers that
-    should take only the suite's idle cores); ``finish`` waits for it."""
+    running; ``finish`` waits for it."""
     cmd, env = _jax_command(code, x64)
-    return start(cmd, env, nice)
+    return start(cmd, env)
 
 
-def start(cmd: list, env=None, nice: int = 0) -> subprocess.Popen:
-    """``cmd`` from the root, its output piped, run by ``nice`` ``nice``
-    steps below this process's priority."""
-    if nice:
-        cmd = ["nice", "-n", str(nice)] + list(cmd)
+def start(cmd: list, env=None) -> subprocess.Popen:
+    """``cmd`` from the root, its output piped, at this process's
+    priority."""
     return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
