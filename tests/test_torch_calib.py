@@ -36,6 +36,9 @@ from sara_tpu_torch.calib import chessboard as tcb
 from sara_tpu_torch.calib import squares as tsq
 
 ROOT = Path(__file__).resolve().parent.parent
+# Time limit (s) of each of the two command-line runs: about three times
+# its wall time in the loaded suite, at least 120 s.
+CLI_SECONDS = 120
 sys.path.insert(0, str(ROOT / "tests"))
 from test_calibration import K_GT, _render_chessboard, _view_pose  # noqa
 
@@ -353,12 +356,12 @@ def test_cli_matches_reference_script(tmp_path):
     ref = subprocess.run(
         [sys.executable, str(ROOT / "scripts" / "calibrate_camera.py"),
          *common, "-o", str(tmp_path / "ref.json")], cwd=cwd, env=env,
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=CLI_SECONDS)
     assert ref.returncode == 0, ref.stderr[-2000:]
     port = subprocess.run(
         [sys.executable, "-m", "sara_tpu_torch.calib.cli", *common,
          "--device", "cpu", "-o", str(tmp_path / "port.json")], cwd=cwd,
-        env=env, capture_output=True, text=True, timeout=300)
+        env=env, capture_output=True, text=True, timeout=CLI_SECONDS)
     assert port.returncode == 0, port.stderr[-2000:]
     a = json.loads((tmp_path / "ref.json").read_text())
     b = json.loads((tmp_path / "port.json").read_text())

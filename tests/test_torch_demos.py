@@ -13,9 +13,11 @@ within ATE 0.05. At these 4 views the float32 SfM's ATE is also held to
 order says, in both packages (ROADMAP §3, F6), so the card logs it.
 
 The two JAX demos that run here without photographs,
-``visual_odometry_demo.py --synthetic`` and ``global_sfm_demo.py``, run in
-a subprocess (JAX on the CPU, no x64, as a user runs them) with the same
-arguments, and the twin's printed numbers are held to theirs: VO, the same
+``visual_odometry_demo.py --synthetic`` and ``global_sfm_demo.py``, with the
+same arguments, print what their recordings hold (``tool_twins.Reference``)
+where a recording's fingerprint matches the tree; else they run live in a
+subprocess (JAX on the CPU, no x64, as a user runs them). The twin's
+printed numbers are held to theirs: VO, the same
 accepted frames, point counts within 5%, ATE within 0.005 of the
 reference's; SfM, each view's keypoint count within 3%, the same number of
 verified pairs, points within 25% (RANSAC draws from another generator)
@@ -24,9 +26,7 @@ and ATE within 0.02 of the reference's.
 
 import contextlib
 import io
-import os
 import re
-import subprocess
 import sys
 from pathlib import Path
 
@@ -34,12 +34,17 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
+sys.path[:0] = [str(ROOT), str(ROOT / "tests")]
 from chip_smoke import DEMOS, demo_failures, load_demo  # noqa: E402
+from tool_twins import OUT, script_reference  # noqa: E402
 
 WIDTH = 240
 SFM_VIEWS = 4
 VO_FRAMES = 6
+# Time limits (s) of the JAX demos where they run live: about three times
+# each one's wall time in the loaded suite, at least 120 s.
+VISUAL_ODOMETRY_SECONDS = 150
+GLOBAL_SFM_SECONDS = 540
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -72,13 +77,19 @@ def run_twin(name, argv):
     return out, printed.getvalue()
 
 
-def run_reference(script, argv):
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    r = subprocess.run([sys.executable, str(ROOT / "examples" / script)]
-                       + argv + ["--cpu"], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stdout + r.stderr
-    return r.stdout
+# The JAX demos the twins' printed numbers are held to.
+JAX_DEMOS = {name: script_reference(
+    f"demos.{name}", f"examples/{name}_demo.py",
+    argv_of(name, OUT) + ["--cpu"], seconds, varies=varies)
+    for name, seconds, varies in (
+        ("visual_odometry", VISUAL_ODOMETRY_SECONDS, ()),
+        ("global_sfm", GLOBAL_SFM_SECONDS,
+         (r"\([\d.]+s( incl\. compile)?\)",)))}
+
+
+def run_reference(name, out):
+    """The JAX demo's standard output (``JAX_DEMOS``)."""
+    return JAX_DEMOS[name].start(out).output().text
 
 
 def numbers(pattern, text):
@@ -103,8 +114,7 @@ def test_demo_twin(name, tmp_path):
     out, printed = run_twin(name, argv_of(name, tmp_path / "twin"))
     assert not demo_failures(name, out, WIDTH, SFM_VIEWS), printed
     if name == "visual_odometry":
-        ref = run_reference("visual_odometry_demo.py",
-                            argv_of(name, tmp_path / "jax"))
+        ref = run_reference(name, tmp_path / "jax")
         pat = r"frame (\d+): (pose added|rejected); (\d+) points"
         got, want = (re.findall(pat, text) for text in (printed, ref))
         assert [g[:2] for g in got] == [w[:2] for w in want]
@@ -115,8 +125,7 @@ def test_demo_twin(name, tmp_path):
         assert abs(ate_t - ate_j) <= 0.005
     elif name == "global_sfm":
         assert out["ate"] <= 0.1, printed
-        ref = run_reference("global_sfm_demo.py",
-                            argv_of(name, tmp_path / "jax"))
+        ref = run_reference(name, tmp_path / "jax")
         kp_t, kp_j = (numbers(r"(\d+)", re.search(r"\[([\d, ]+)\]",
                                                   text).group(1))
                       for text in (printed, ref))

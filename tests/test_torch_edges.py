@@ -11,8 +11,9 @@ board, so an ulp decides which of two tied pixels survives. Hence:
   within one pixel of the other's.
 - Hough lines (rho, theta, votes, in order) equal the reference's bit for
   bit, run as users run it: in a subprocess without the suite's x64, under
-  which the reference's thetas, and so its votes, are float64. Fifteen
-  cases (step, board, noisy board; K = 8 to 128), and a case where every
+  which the reference's thetas, and so its votes, are float64 (the run's
+  recording, ``tool_twins.Reference``, where its fingerprint matches the
+  tree, else the run itself). Fifteen cases (step, board, noisy board; K = 8 to 128), and a case where every
   edgel of a line lands in one bin.
 - Chains are compared as point sets, segments within 0.5 px.
 The twins of the reference's own edge tests follow; the real-image test
@@ -36,7 +37,11 @@ from sara_tpu_torch.image import edges as ted
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_calibration import K_GT, _render_chessboard, _view_pose  # noqa
-from tool_twins import run_jax  # noqa: E402
+from tool_twins import OUT, jax_reference  # noqa: E402
+
+# Time limit (s) of the reference's Hough run where it runs live: about
+# three times its wall time in the loaded suite, at least 120 s.
+HOUGH_SECONDS = 220
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -153,7 +158,7 @@ def _dense_edges():
 def reference_hough(path):
     """The reference's Canny edges of each of ``HOUGH_IMAGES`` and its
     Hough lines at each of ``HOUGH_KS``, and its lines on the dense random
-    edges, into an NPZ at ``path``. Run by ``run_jax``, without x64."""
+    edges, into an NPZ at ``path``. Run by ``HOUGH``, without x64."""
     arrays = {"dense": _dense_edges()}
     for name, make in HOUGH_IMAGES.items():
         arrays[name] = np.asarray(jed.canny(jnp.asarray(make())))
@@ -165,13 +170,17 @@ def reference_hough(path):
     np.savez(path, **arrays)
 
 
+HOUGH = jax_reference(
+    "edges.hough", "import test_torch_edges as t; import jax.numpy as jnp; "
+    "assert jnp.asarray(1.0).dtype == jnp.float32; "
+    f"t.reference_hough({OUT + '/reference.npz'!r})", HOUGH_SECONDS,
+    files=("reference.npz",))
+
+
 @pytest.fixture(scope="module")
 def hough_reference(tmp_path_factory):
-    path = tmp_path_factory.mktemp("hough") / "reference.npz"
-    run_jax("import test_torch_edges as t; import jax.numpy as jnp; "
-            "assert jnp.asarray(1.0).dtype == jnp.float32; "
-            f"t.reference_hough({str(path)!r})")
-    return dict(np.load(path))
+    out = HOUGH.start(tmp_path_factory.mktemp("hough")).output()
+    return dict(np.load(out.files["reference.npz"]))
 
 
 def _port_lines(ref, name, k):

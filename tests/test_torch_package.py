@@ -25,6 +25,9 @@ from sara_tpu_torch.sfm.loop_closure import LoopCloser
 from sara_tpu_torch.sfm.odometry import OdometryConfig, OdometryPipeline
 
 ROOT = Path(__file__).resolve().parent.parent
+# Time limit (s) of the import check's interpreter: about three times its
+# wall time in the loaded suite, at least 120 s.
+IMPORT_CHECK_SECONDS = 240
 PORT_SOURCES = (sorted((ROOT / "sara_tpu_torch").rglob("*.py"))
                 + sorted((ROOT / "examples").glob("torch_*.py"))
                 + sorted((ROOT / "scripts").glob("torch_*.py"))
@@ -91,7 +94,8 @@ def test_import_leaves_jax_out():
             "m.startswith(('jax.', 'sara_tpu.')) or m == 'sara_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True,
+                       timeout=IMPORT_CHECK_SECONDS)
     assert r.returncode == 0, r.stdout + r.stderr
 
 

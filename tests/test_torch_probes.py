@@ -10,9 +10,10 @@ prefixes to ``compute_sift_keypoints`` and ``_process_octave``, twin 4's
 kernel route to its bilinear gather, twin 9's segment sums to
 ``jax.ops.segment_sum``, twin 7's composed pieces to one dense-Schur
 iteration in float64, and the two batch probes' twins to the JAX probes
-run at the same tiny size in subprocesses started with the twins' run
-(``tests/tool_twins.py``, the photographs replaced by ``make_room(seed=1)``
-as the twins replace them).
+at the same tiny size, the photographs replaced by ``make_room(seed=1)``
+as the twins replace them: their recordings (``tool_twins.Reference``)
+where a recording's fingerprint matches the tree, else the probes run live
+in subprocesses started with the twins' run.
 """
 
 from __future__ import annotations
@@ -33,7 +34,15 @@ for _p in (ROOT, ROOT / "tests"):
         sys.path.insert(0, str(_p))
 
 from chip_smoke import PROBE_RUNS, load_tool, stages_in_order  # noqa: E402
-from tool_twins import PROCEDURAL_ROOM, finish, start_reference  # noqa: E402
+from tool_twins import (  # noqa: E402
+    PROCEDURAL_ROOM, json_fields, tool_reference)
+
+# Time limits (s): of the twins' interpreter, and of each JAX probe where
+# it runs live; about three times each one's wall time in the loaded
+# suite, at least 120 s.
+TWINS_SECONDS = 760
+BATCH_PARITY_SECONDS = 800
+AB_VO_SECONDS = 820
 
 HW = (64, 96)
 # The tiny sizes of the two batch probes, for the twin and the JAX probe
@@ -41,6 +50,13 @@ HW = (64, 96)
 BATCH_PARITY_ARGV = ["--frames", "3", "--width", "128", "--height", "96"]
 AB_VO_ARGV = ["--frames", "5", "--seeds", "1", "--width", "240", "--height",
               "180"]
+JAX_PROBES = {name: tool_reference(
+    f"probes.{name}", name, argv, seconds, patch=PROCEDURAL_ROOM,
+    varies=varies)
+    for name, argv, seconds, varies in (
+        ("probe_batch_parity", BATCH_PARITY_ARGV, BATCH_PARITY_SECONDS, ()),
+        ("probe_ab_vo", AB_VO_ARGV, AB_VO_SECONDS,
+         (json_fields("ms_per_frame"),)))}
 # The tiny sizes: each twin's argv and the module constants patched.
 TINY = {
     "probe_sift_stages": ([], {"ITERS": 1}),
@@ -103,24 +119,15 @@ def one_torch_thread():
 @pytest.fixture(scope="module")
 def jax_probes():
     """The two JAX batch probes at the twins' tiny sizes, the photographs
-    replaced by ``make_room(seed=1)``: started together in subprocesses
-    before the twins run, each mostly JAX compiles; a test waits for its
-    probe's standard output. Killed at the module's end if still running."""
-    procs = {name: start_reference(name, argv, patch=PROCEDURAL_ROOM)
-             for name, argv in (("probe_batch_parity", BATCH_PARITY_ARGV),
-                                ("probe_ab_vo", AB_VO_ARGV))}
-    outs = {}
-
-    def output(name):
-        if name not in outs:
-            outs[name] = finish(procs[name])
-        return outs[name]
-
-    yield output
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    replaced by ``make_room(seed=1)`` (``JAX_PROBES``): their recordings,
+    or, where one is stale, the probe started in a subprocess before the
+    twins run (mostly JAX compiles); a test waits for its probe's
+    standard output. A live run is killed at the module's end if still
+    running."""
+    runs = {name: ref.start() for name, ref in JAX_PROBES.items()}
+    yield lambda name: runs[name].output().text
+    for run in runs.values():
+        run.kill()
 
 
 @pytest.fixture(scope="module")
@@ -130,7 +137,8 @@ def printed(jax_probes):
     code = RUNNER.format(root=str(ROOT), hw=HW, tiny=TINY,
                          forbidden=FORBIDDEN)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                       capture_output=True, text=True, timeout=600)
+                       capture_output=True, text=True,
+                       timeout=TWINS_SECONDS)
     assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
 

@@ -32,8 +32,11 @@ reference on the same inputs, made from the probes' seeds:
   render and its warp at capacity 512: keypoints by overlap, the paired
   keypoints' descriptors, and the match sets (tolerances in the test).
 
-The JAX runs that compile most start in subprocesses at the module's
-start and run beside the twins.
+The JAX programs' outputs are their recordings (``tool_twins.Reference``)
+where a recording's fingerprint matches the tree; else the programs start
+in subprocesses at the module's start and run beside the twins. The
+quality program's arrays (3.8 MB, float32 descriptors that do not
+compress) would outgrow the recordings' 2 MB, so it always runs live.
 """
 
 from __future__ import annotations
@@ -53,9 +56,19 @@ for _p in (ROOT, ROOT / "tests", ROOT / "scripts"):
         sys.path.insert(0, str(_p))
 
 from chip_smoke import PROBE_RUNS, load_tool, stages_in_order  # noqa: E402
+from probe_source import probe_function  # noqa: E402
 from tool_twins import (  # noqa: E402,F401
-    finish, one_torch_thread, probe_function, start, start_jax,
-    start_reference)
+    OUT, jax_reference, one_torch_thread, start, tool_reference)
+
+# Time limits (s): of the twins' three interpreters, and of each JAX
+# program where it runs live; about three times each one's wall time in
+# the loaded suite, at least 120 s.
+TWINS_SECONDS = 830
+SFM_SECONDS = 840
+CITY_SECONDS = 860
+CAPACITY_SECONDS = 960
+QUALITY_SECONDS = 1060
+STAGES_SECONDS = 960
 
 HW = "96x128"
 HW_PAIR = (96, 128)
@@ -142,7 +155,7 @@ import functools, json
 import numpy as np
 import jax, jax.numpy as jnp
 import torch_bench
-from tool_twins import probe_function
+from probe_source import probe_function
 import sara_tpu.features.dog as D
 import sara_tpu.features.orientation as O
 (a_np, b_np), _ = torch_bench.probe_frames(2, *{hw!r})
@@ -279,48 +292,52 @@ print("saved", len({cases!r}))
 """
 
 
+# The JAX programs of the SfM stages (x64), the city stages and the three
+# frontend probes.
+PRELUDE = SIFT_PRELUDE.format(hw=HW_PAIR)
+STAGES = {
+    "bisect_a": ("probe_fault_bisect", ("detect", "orient", "peaks"), False),
+    "bisect_b": ("probe_fault_bisect", ("compact", "desc"), True),
+    "desc": ("probe_fault_desc", ("gather", "einsum"), False)}
+JAX_RUNS = {
+    "sfm": tool_reference(
+        "probes_queue.sfm", "probe_sfm_ate_stages",
+        ["--views"] + SFM_VIEWS_REF, SFM_SECONDS, patch=ONE_THREAD,
+        cpu_flag=False, x64=True),
+    "city": jax_reference(
+        "probes_queue.city", JAX_CITY.format(
+            path=f"{OUT}/out.npz", keys=CITY_KEYS, views=CITY_VIEWS),
+        CITY_SECONDS, files=("out.npz",)),
+    "capacity": jax_reference("probes_queue.capacity",
+                              PRELUDE + JAX_CAPACITY, CAPACITY_SECONDS),
+    **{name: jax_reference(f"probes_queue.{name}", PRELUDE + JAX_STAGES.format(
+        probe=probe, stages=st, merge=merge), STAGES_SECONDS)
+       for name, (probe, st, merge) in STAGES.items()},
+}
+
+
 @pytest.fixture(scope="module")
 def jax_runs(tmp_path_factory):
-    """The JAX programs of the SfM stages (x64), the city stages and the
-    three frontend probes, each started in a subprocess at the module's
-    start; a test waits for its run's standard output. Killed at the
-    module's end if still running."""
-    city = tmp_path_factory.mktemp("city") / "out.npz"
-    quality = tmp_path_factory.mktemp("quality") / "out.npz"
-    prelude = SIFT_PRELUDE.format(hw=HW_PAIR)
-    stages = {
-        "bisect_a": ("probe_fault_bisect", ("detect", "orient", "peaks"),
-                     False),
-        "bisect_b": ("probe_fault_bisect", ("compact", "desc"), True),
-        "desc": ("probe_fault_desc", ("gather", "einsum"), False)}
-    procs = {
-        "sfm": start_reference("probe_sfm_ate_stages", ["--views"]
-                               + SFM_VIEWS_REF, ONE_THREAD, cpu_flag=False,
-                               x64=True),
-        "city": start_jax(JAX_CITY.format(path=str(city), keys=CITY_KEYS,
-                                          views=CITY_VIEWS)),
-        "capacity": start_jax(prelude + JAX_CAPACITY),
-        "quality": start_jax(JAX_QUALITY.format(
-            hw=QUALITY_HW, cases=QUALITY_CASES, cap=QUALITY_CAP,
-            fields=KP_FIELDS, path=str(quality))),
-        **{name: start_jax(prelude + JAX_STAGES.format(
-            probe=probe, stages=st, merge=merge))
-           for name, (probe, st, merge) in stages.items()},
-    }
-    outs = {}
+    """The JAX programs (``JAX_RUNS``): their recordings, or, where one is
+    stale, the program started in a subprocess at the module's start, and
+    the quality program, started live; a test waits for its run's standard
+    output (``jax_runs(name)``) or its saved file (``jax_runs.file(name)``).
+    A live run is killed at the module's end if still running."""
+    quality = jax_reference("probes_queue.quality", JAX_QUALITY.format(
+        hw=QUALITY_HW, cases=QUALITY_CASES, cap=QUALITY_CAP,
+        fields=KP_FIELDS, path=f"{OUT}/out.npz"), QUALITY_SECONDS,
+        files=("out.npz",))
+    runs = {name: ref.start(tmp_path_factory.mktemp(name))
+            for name, ref in JAX_RUNS.items()}
+    runs["quality"] = quality.start_live(tmp_path_factory.mktemp("quality"))
 
     def output(name):
-        if name not in outs:
-            outs[name] = finish(procs[name])
-        return outs[name]
+        return runs[name].output().text
 
-    output.city_path = city
-    output.quality_path = quality
+    output.file = lambda name: runs[name].output().files["out.npz"]
     yield output
-    for proc in procs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
+    for run in runs.values():
+        run.kill()
 
 
 @pytest.fixture(scope="module")
@@ -334,7 +351,7 @@ def printed(jax_runs):
         for group in GROUPS]
     out = {"imported": [], "results": {}}
     for proc in procs:
-        stdout, stderr = proc.communicate(timeout=600)
+        stdout, stderr = proc.communicate(timeout=TWINS_SECONDS)
         assert proc.returncode == 0, stdout[-3000:] + stderr[-3000:]
         line = [ln for ln in stdout.splitlines()
                 if ln.startswith("RESULT ")][-1]
@@ -407,7 +424,7 @@ def test_city_error_functions_on_the_reference_output(jax_runs, capsys):
     scene = load_tool("bench_city_scale_scene")
     _, centers, _ = scene.make_city_scene(CITY_VIEWS, device="cpu")
     n_pairs = len(scene.proximity_pairs(centers))
-    arrays = dict(np.load(jax_runs.city_path))
+    arrays = dict(np.load(jax_runs.file("city")))
     arrays["edges"] = [tuple(e) for e in arrays["edges"]]
     capsys.readouterr()
     twin.report(arrays, scene.gt_rotations(CITY_VIEWS), centers, n_pairs)
@@ -688,8 +705,7 @@ def test_quality_twin_against_the_probe(case, jax_runs, monkeypatch):
     stride-2 maps through ``compute_sift_keypoints``."""
     import sara_tpu_torch.features as TF
 
-    jax_runs("quality")
-    d = np.load(jax_runs.quality_path)
+    d = np.load(jax_runs.file("quality"))
     probe, kw = QUALITY_CASES[case]
     seen, run = [], TF.compute_sift_keypoints
 

@@ -10,7 +10,9 @@ ATE must be at most the reference's + 0.02 and within the reference
 tests' gates (0.15 with 0.3 px noise, 0.02 without). The port runs its
 bundle adjustment in float32 (the bfloat16 dense path), the reference
 here in float64 (the suite's conftest turns on JAX x64), and once, on the
-noisy sequence, in a subprocess without x64, as its users run it.
+noisy sequence, in a subprocess without x64, as its users run it (that
+run's recording, ``tool_twins.Reference``, where its fingerprint matches
+the tree).
 """
 
 import json
@@ -313,10 +315,14 @@ VO_CASES = {
 }
 
 
+# Time limit (s) of the reference's VO run where it runs live: about
+# three times its wall time in the loaded suite, at least 120 s.
+REFERENCE_VO_SECONDS = 670
 # The reference's VO as its users run it: JAX without x64 (in this suite's
 # x64 it builds its BA problem, and more, in float64), in a subprocess on
-# the keypoints saved at ``sys.argv[1]``; prints its acceptances and
-# trajectory as one JSON line.
+# the noisy sequence's keypoints (``_make_sequence``'s float32 arrays, as
+# the tests stack them); prints its acceptances and trajectory as one JSON
+# line.
 REFERENCE_VO_WITHOUT_X64 = """
 import json
 import jax
@@ -324,7 +330,12 @@ import jax.numpy as jnp
 import numpy as np
 from sara_tpu.core.types import Keypoints
 from sara_tpu.sfm import OdometryConfig, OdometryPipeline
-d = np.load(sys.argv[1])
+from test_sfm_pipeline import _make_sequence
+n, noise, seed, window, _ = {case!r}
+kps, _, K = _make_sequence(n_frames=n, n_points=300, noise=noise, seed=seed)
+d = dict(K=K, window=window, **{{
+    f: np.stack([np.asarray(getattr(kp, f)) for kp in kps])
+    for f in kps[0]._fields}})
 cfg = OdometryConfig(rel_pose_samples=200, pnp_samples=200,
                      rel_pose_min_inliers=50, pnp_min_inliers=20,
                      ba_window=int(d["window"]))
@@ -332,30 +343,26 @@ pipe = OdometryPipeline(d["K"], cfg)
 ok = [bool(pipe.process_keypoints(Keypoints(*(jnp.asarray(d[f][i])
                                               for f in Keypoints._fields)), i))
       for i in range(len(d["xy"]))]
-print(json.dumps({"ok": ok, "trajectory": pipe.pose_graph.trajectory().tolist(),
-                  "x64": bool(jax.config.jax_enable_x64)}))
+print(json.dumps({{"ok": ok,
+                   "trajectory": pipe.pose_graph.trajectory().tolist(),
+                   "x64": bool(jax.config.jax_enable_x64)}}))
 """
+REFERENCE_VO = tool_twins.jax_reference(
+    "sfm.vo_without_x64",
+    REFERENCE_VO_WITHOUT_X64.format(case=VO_CASES["noise0.3"]),
+    REFERENCE_VO_SECONDS)
 
 
 @pytest.fixture(scope="module", autouse=True)
-def reference_vo_without_x64(tmp_path_factory):
-    """The reference's run on the noisy sequence without x64, started in a
-    subprocess when this module starts, so that it runs beside the
-    module's first tests; killed at the end if no test read it."""
-    n, noise, seed, window, _ = VO_CASES["noise0.3"]
-    kps, _, K = _make_sequence(n_frames=n, n_points=300, noise=noise,
-                               seed=seed)
-    path = tmp_path_factory.mktemp("vo") / "sequence.npz"
-    np.savez(path, K=K, window=window, **{
-        f: np.stack([np.asarray(getattr(kp, f)) for kp in kps])
-        for f in kps[0]._fields})
-    cmd, env = tool_twins._jax_command(
-        f"sys.argv[1:] = [{str(path)!r}]\n" + REFERENCE_VO_WITHOUT_X64)
-    proc = tool_twins.start(cmd, env)
-    yield proc
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+def reference_vo_without_x64():
+    """The reference's run on the noisy sequence without x64
+    (``REFERENCE_VO``): its recording, or, where that is stale, the run
+    started in a subprocess when this module starts, so that it runs
+    beside the module's first tests, and killed at the end if no test
+    read it."""
+    run = REFERENCE_VO.start()
+    yield run
+    run.kill()
 
 
 @pytest.mark.parametrize("case", list(VO_CASES) + ["noise0.3-without-x64"])
@@ -379,8 +386,8 @@ def test_vo_keypoints_against_the_reference(case, reference_vo_without_x64):
     ok = [port.process_keypoints(keypoints_from_numpy(kp, "cpu"), f)
           for f, kp in enumerate(kps)]
     if without_x64:
-        out = json.loads(tool_twins.finish(
-            reference_vo_without_x64).strip().splitlines()[-1])
+        out = json.loads(
+            reference_vo_without_x64.output().text.strip().splitlines()[-1])
         assert out["x64"] is False
         ref_ok, ref_traj = out["ok"], np.asarray(out["trajectory"])
     assert ok == ref_ok == [True] * n

@@ -4,10 +4,11 @@
 A seeded procedural 480x640 PNG (one smooth-noise texture of
 ``tests/render3d.py::make_room(seed=1, tex_size=640)``, its first 480
 rows) goes through the JAX tool in a subprocess (JAX on the CPU without
-x64; the tool pins the CPU itself and logs to stderr only) and through the
-twin's ``main`` with ``--device cpu`` in this process, both at
-``--first-octave 0``: at -1 the JAX tool takes ~45 s on such a texture
-and fills ``total_capacity``.
+x64; the tool pins the CPU itself and logs to stderr only; its recording,
+``tool_twins.Reference``, where the recording's fingerprint matches the
+tree) and through the twin's ``main`` with ``--device cpu`` in this
+process, both at ``--first-octave 0``: at -1 the JAX tool takes ~45 s on
+such a texture and fills ``total_capacity``.
 
 Both sides warp with the same ``cv2`` and run the same OpenCV SIFT, so
 their OpenCV lines are equal. The port's SIFT differs from the reference's
@@ -34,12 +35,29 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from render3d import make_room  # noqa: E402
-from tool_twins import ROOT, last_json, run_reference  # noqa: E402
+from tool_twins import OUT, ROOT, last_json, tool_reference  # noqa: E402
 from chip_smoke import (detection_quality, load_tool,  # noqa: E402
                         tool_failures)
 
+# Time limit (s) of the JAX tool where it runs live: about three times its
+# wall time in the loaded suite, at least 120 s.
+TOOL_SECONDS = 160
+
 ARGV = ["--first-octave", "0"]
+# The seeded texture, written as a PNG to ``path`` by the port's writer,
+# for the tool's program and the twin alike.
+WRITE_TEXTURE = """
+import numpy as np
+from render3d import make_room
+from sara_tpu_torch.io.image import imwrite
+tex = make_room(seed=1, tex_size=640)[0].tex[:480]
+imwrite({path!r}, (np.clip(tex, 0, 1) * 255).round().astype(np.uint8))
+"""
+TOOL = tool_reference(
+    "tools_quality.eval_detection_quality", "eval_detection_quality",
+    ARGV + ["--image", f"{OUT}/texture.png"], TOOL_SECONDS,
+    patch=WRITE_TEXTURE.format(path=f"{OUT}/texture.png"), cpu_flag=False,
+    stream="stderr", varies=(r"t=\d+\.\d\ds",))
 # The tool's three stderr lines, word for word (the seconds aside).
 DETECTOR_LINE = re.compile(
     r"(opencv|ours\(fo=-?\d+\)): kp (\d+)/(\d+) t=\d+\.\d\ds repeatability "
@@ -89,15 +107,11 @@ def _parse(stderr: str) -> dict:
 def runs(tmp_path_factory):
     """The PNG through the JAX tool and the twin: (tool's parsed lines,
     twin's parsed lines, twin's result, twin's stdout, --out path)."""
-    from sara_tpu_torch.io.image import imwrite
-
     tmp = tmp_path_factory.mktemp("quality")
-    tex = make_room(seed=1, tex_size=640)[0].tex[:480]
     png = str(tmp / "texture.png")
-    imwrite(png, (np.clip(tex, 0, 1) * 255).round().astype(np.uint8))
+    exec(WRITE_TEXTURE.format(path=png), {})
     argv = ARGV + ["--image", png]
-    ref = _parse(run_reference("eval_detection_quality", argv,
-                               cpu_flag=False, stream="stderr"))
+    ref = _parse(TOOL.start(tmp_path_factory.mktemp("tool")).output().text)
     out = str(tmp / "twin.json")
     err, std = io.StringIO(), io.StringIO()
     with contextlib.redirect_stderr(err), contextlib.redirect_stdout(std):

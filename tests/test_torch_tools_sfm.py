@@ -5,10 +5,12 @@
 
 Each twin's ``main(argv)`` runs in this process with ``--device cpu`` at a
 small size and is gated by ``chip_smoke.tool_failures``, the gates phase
-"tools" applies on the card. The JAX tool runs in a subprocess (JAX on the
-CPU, no x64, as a user runs it) on the same seed and size, except where a
-test names another way; in the two slowest comparisons it runs beside the
-twin (``tool_twins.run_beside``).
+"tools" applies on the card. The JAX tool's output on the same seed and
+size, except where a test names another way, is its recording
+(``tool_twins.Reference``) where the recording's fingerprint matches the
+tree; else the tool runs live in a subprocess (JAX on the CPU, no x64, as
+a user runs it), in the two slowest comparisons beside the twin
+(``tool_twins.run_beside``).
 """
 
 import json
@@ -22,11 +24,48 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tool_twins import (  # noqa: E402
-    PROCEDURAL_ROOM, ROOT, last_json, run_beside, run_reference, run_twin,
-    start_reference)
+    OUT, PROCEDURAL_ROOM, ROOT, json_fields, last_json, run_beside,
+    run_twin, tool_reference)
 from chip_smoke import load_tool, tool_failures  # noqa: E402
 
+# Time limits (s) of the JAX tools where they run live: about three times
+# each one's wall time in the loaded suite, at least 120 s.
+BENCH_BA_SECONDS = 120
+BENCH_SFM_SCALE_SECONDS = 440
+BENCH_CONFIG5_REAL_SECONDS = 760
+
 TINY = dict(C=8, P=400, O=3200)
+BENCH_BA = tool_reference(
+    "tools_sfm.bench_ba", "bench_ba",
+    ["--sizes", "tiny", "--json", f"{OUT}/j.json"], BENCH_BA_SECONDS,
+    patch=f"import bench_ba; bench_ba.SIZES['tiny'] = {TINY!r}",
+    files=("j.json",), varies=(
+        r"compile\+1st=[\d.]+s", r"run=\d+ms", r"[\d.]+ LM iters/s",
+        r"measured [\d.]+ ms, [\d.]+% of roofline",
+        r"\([\d.]+x device-resident\)",
+        json_fields("lm_iters_per_s", "ms_per_lm_iter", "compile_s",
+                    "roofline_frac", "vs_device_resident")))
+SFM_SCALE_ARGV = ["--views", "16"]
+# The reference's verified edges, printed by its global SfM.
+EDGES_PRINTED = (
+    "import sara_tpu.sfm.global_sfm as g; _run = g.run_global_sfm\n"
+    "def _rec(*a, **k):\n"
+    "    o = _run(*a, **k)\n"
+    "    print('EDGES', [[int(i) for i in e] for e in o['edges']])\n"
+    "    return o\n"
+    "g.run_global_sfm = _rec")
+BENCH_SFM_SCALE = tool_reference(
+    "tools_sfm.bench_sfm_scale", "bench_sfm_scale", SFM_SCALE_ARGV,
+    BENCH_SFM_SCALE_SECONDS, patch=EDGES_PRINTED,
+    varies=(json_fields("value", "total_s"),))
+CONFIG5_ARGV = ["--views", "12", "--ba-blocks", "4", "--mesh", "1"]
+BENCH_CONFIG5_REAL = tool_reference(
+    "tools_sfm.bench_config5_real", "bench_config5_real",
+    CONFIG5_ARGV + ["--json", f"{OUT}/j.json"], BENCH_CONFIG5_REAL_SECONDS,
+    patch=PROCEDURAL_ROOM, cpu_flag=False, files=("j.json",), varies=(
+        json_fields("total_sfm_s", "wall_s", "speedup", "efficiency",
+                    "projected_2x4_efficiency", "host_physical_cores"),
+        r'"stage_times_s": \{[^}]*\}'))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -53,18 +92,16 @@ def test_bench_ba_against_the_tool(tmp_path, monkeypatch):
     argv = ["--sizes", "tiny", "--json", str(tmp_path / "t.json")]
     out = twin.main(argv + ["--device", "cpu"])
     assert not tool_failures("bench_ba", out, argv), out
-    ref = run_reference(
-        "bench_ba", ["--sizes", "tiny", "--json", str(tmp_path / "j.json")],
-        f"import bench_ba; bench_ba.SIZES['tiny'] = {TINY!r}")
+    ref = BENCH_BA.start(tmp_path).output()
     costs = dict((s, (float(a), float(b))) for s, a, b in re.findall(
-        r"tiny\[(dense|cg)\]: .* cost ([\d.]+)->([\d.]+)", ref))
+        r"tiny\[(dense|cg)\]: .* cost ([\d.]+)->([\d.]+)", ref.text))
     assert set(costs) == {"dense", "cg"}
     for solver, (c0, c1) in costs.items():
         got = out["tiny"][solver]
         assert abs(got["initial_cost"] - c0) <= 1e-3 * c0, (solver, got, c0)
         assert abs(got["final_cost"] - c1) <= 1e-3 * c1, (solver, got, c1)
-    t, j = (json.loads((tmp_path / f).read_text()) for f in ("t.json",
-                                                             "j.json"))
+    t, j = (json.loads(f.read_text()) for f in (tmp_path / "t.json",
+                                                 ref.files["j.json"]))
     assert set(t) == set(j)
     assert set(t["results"]["tiny"]) == set(j["results"]["tiny"])
 
@@ -175,16 +212,10 @@ def test_mc_fivepoint_against_the_tool():
 def test_bench_sfm_scale_against_the_tool():
     """16 ring views: the same verified edges as the tool, the ATE within
     0.02 of the tool's, the same keys on stdout."""
-    argv = ["--views", "16"]
-    capture = ("import sara_tpu.sfm.global_sfm as g; _run = g.run_global_sfm\n"
-               "def _rec(*a, **k):\n"
-               "    o = _run(*a, **k)\n"
-               "    print('EDGES', [[int(i) for i in e] for e in o['edges']])\n"
-               "    return o\n"
-               "g.run_global_sfm = _rec")
-    out, stdout = run_beside(start_reference("bench_sfm_scale", argv,
-                                             capture),
-                             lambda: run_twin("bench_sfm_scale", argv))
+    argv = SFM_SCALE_ARGV
+    out, ref = run_beside(BENCH_SFM_SCALE.start(),
+                          lambda: run_twin("bench_sfm_scale", argv))
+    stdout = ref.text
     assert not tool_failures("bench_sfm_scale", out, argv), out
     edges = json.loads(re.search(r"EDGES (\[.*\])", stdout).group(1))
     ref = last_json(stdout)
@@ -199,15 +230,13 @@ def test_bench_config5_real_against_the_tool(tmp_path):
     and edges, the artifact's keys, the mesh table at n = 1, and the ATE
     within 1.25 times the tool's own plus 0.02 (a 12-view loop is coarse:
     the tool ends at ATE 0.3663 here, 0.2087 at 24 views; CPU runs)."""
-    argv = ["--views", "12", "--ba-blocks", "4", "--mesh", "1"]
-    proc = start_reference(
-        "bench_config5_real", argv + ["--json", str(tmp_path / "j.json")],
-        PROCEDURAL_ROOM, cpu_flag=False)
-    out, _ = run_beside(proc, lambda: run_twin(
+    argv = CONFIG5_ARGV
+    run = BENCH_CONFIG5_REAL.start(tmp_path)
+    out, ref = run_beside(run, lambda: run_twin(
         "bench_config5_real", argv + ["--json", str(tmp_path / "t.json")]))
     assert not tool_failures("bench_config5_real", out, argv), out
     assert [r["mesh_devices"] for r in out["partitioned_ba_scaling"]] == [1]
-    ref = json.loads((tmp_path / "j.json").read_text())
+    ref = json.loads(ref.files["j.json"].read_text())
     assert set(ref) == set(out)
     assert out["pairs"] == ref["pairs"]
     assert out["edges"] == ref["edges"]

@@ -4,12 +4,14 @@ unless asked for the CPU.
 
 Each twin's ``main(argv)`` runs in this process with ``--device cpu`` at a
 small size and is gated by ``chip_smoke.tool_failures``, the gates phase
-"tools" applies on the card. The JAX tool runs in a subprocess (JAX on the
-CPU, no x64, as a user runs it) on the same seed and size, started before
-the twin and running beside it (``tool_twins.run_beside``); where it reads
-the reference's photographs (its data directory, missing here), the
-subprocess hands it ``make_room(seed=1)``'s procedural room, the twin's own
-fallback. Compared: the same accepted frames, each ATE within the gate,
+"tools" applies on the card. The JAX tool's output on the same seed and
+size is its recording (``tool_twins.Reference``) where the recording's
+fingerprint matches the tree; else the tool runs live in a subprocess (JAX
+on the CPU, no x64, as a user runs it), started before the twin and
+running beside it (``tool_twins.run_beside``). Where it reads the
+reference's photographs (its data directory, missing here), the program
+hands it ``make_room(seed=1)``'s procedural room, the twin's own fallback.
+Compared: the same accepted frames, each ATE within the gate,
 map points within 5% (synthetic keypoints) or 25% (rendered pixels: RANSAC
 draws from another generator).
 """
@@ -24,8 +26,26 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from tool_twins import (  # noqa: E402
-    PROCEDURAL_ROOM, last_json, run_beside, run_twin, start_reference)
+    OUT, PROCEDURAL_ROOM, json_fields, last_json, run_beside, run_twin,
+    tool_reference)
 from chip_smoke import load_tool, tool_failures  # noqa: E402
+
+# Time limits (s) of the JAX tool where it runs live: about three times
+# each run's wall time in the loaded suite, at least 120 s.
+EVAL_VO_KEYPOINTS_SECONDS = 180
+EVAL_VO_ROOM_SECONDS = 1000
+
+KEYPOINTS_ARGV = ["--frames", "12"]
+EVAL_VO_KEYPOINTS = tool_reference(
+    "tools_vo.eval_vo_keypoints", "eval_vo", KEYPOINTS_ARGV,
+    EVAL_VO_KEYPOINTS_SECONDS, varies=(r"throughput: .*",))
+ROOM_ARGV = ["--room", "--loop", "--frames", "40", "--height", "180",
+             "--width", "240"]
+EVAL_VO_ROOM = tool_reference(
+    "tools_vo.eval_vo_room", "eval_vo",
+    ROOM_ARGV + ["--out", f"{OUT}/j.json"], EVAL_VO_ROOM_SECONDS,
+    patch=PROCEDURAL_ROOM, varies=(json_fields(
+        "fps", "ms_per_frame", "steady_ms_per_frame", "steady_fps"),))
 
 
 
@@ -64,9 +84,10 @@ def test_tool_twin_needs_a_card_or_cpu(tool):
 def test_eval_vo_keypoints_against_the_tool():
     """12 synthetic keypoint frames: every frame accepted on both sides,
     ATE within eval_vo's gate (0.05), map points within 5%."""
-    argv = ["--frames", "12"]
-    out, ref = run_beside(start_reference("eval_vo", argv),
+    argv = KEYPOINTS_ARGV
+    out, ref = run_beside(EVAL_VO_KEYPOINTS.start(),
                           lambda: run_twin("eval_vo", argv))
+    ref = ref.text
     assert not tool_failures("eval_vo", out, argv)
     (acc, n), = re.findall(r"frames accepted: (\d+)/(\d+)", ref)
     (ate,), (pts,) = (re.findall(p, ref) for p in (
@@ -85,16 +106,12 @@ def test_eval_vo_room_against_the_tool(tmp_path):
     raises the ATE in both packages (ROADMAP F3; the reference 0.0849 ->
     0.2847 on the CPU), so the twin's ATE after closure is held to 1.25
     times the reference's own plus 0.02."""
-    argv = ["--room", "--loop", "--frames", "40", "--height", "180",
-            "--width", "240"]
-    proc = start_reference("eval_vo",
-                           argv + ["--out", str(tmp_path / "j.json")],
-                           PROCEDURAL_ROOM)
-    out, stdout = run_beside(proc, lambda: run_twin(
+    argv = ROOM_ARGV
+    out, ref = run_beside(EVAL_VO_ROOM.start(tmp_path), lambda: run_twin(
         "eval_vo", argv + ["--out", str(tmp_path / "t.json")]))
     assert not tool_failures("eval_vo_room", out, argv), out
     assert json.loads((tmp_path / "t.json").read_text())[-1] == out
-    ref = last_json(stdout)
+    ref = last_json(ref.text)
     assert out["accepted"] == ref["accepted"]
     assert set(ref) <= set(out)
     assert ref["ate_before_closure"] <= 0.10, ref
